@@ -25,6 +25,11 @@ settings.register_profile(
 settings.load_profile("repro")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where none is present")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0xC0FFEE)
