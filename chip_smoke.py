@@ -5,8 +5,8 @@
 
 Phases; any failure exits nonzero before the last line is printed:
 
-1. Set-up: the card's name and power limit; build the three CUDA kernels
-   with nvcc (one process per source, in parallel).
+1. Set-up: the card's name and power limit; build the CUDA kernels with
+   nvcc (one process per source, in parallel).
 2. Main path at full size, through the entry points a user calls: one
    ``repro_torch.engine.compress`` then ``decompress`` of a 100x500x500
    float32 field (the shape of one Hurricane ISABEL variable, made by the
@@ -25,10 +25,32 @@ Phases; any failure exits nonzero before the last line is printed:
    (quantize, order flags and a global Jacobi least fixed point of the
    subbins on the untiled field); the container decoded on the CPU must
    give the same values; and the f32 field compressed on the CPU must give
-   the same container bytes.
+   the same container bytes.  Each compress on the card downloads its
+   streams compacted (``encode_path="auto"``): its ``bytes_d2h`` must be
+   at most 1.1x the container, and an ``encode_path="staged"`` compress
+   (whose download ratio is printed beside) must give the same bytes.
+2b. Plain path at full size: the same two fields through
+   ``compress(..., preserve_order=False)`` and ``decompress``, launches
+   counted per path as above (f32 compress: the fused value encode
+   alone; f64 compress: the quantize stage and the integer encode; no
+   solve; decompress: the decode kernel's no-subbin instantiation).
+   Checks the bound, the compacted download, the staged bytes, values
+   bit-equal to a whole-field plain reconstruction on the card
+   (``quantize_broadcast`` then ``decode_base`` on the untiled field),
+   and ISABEL's plain container byte-equal to the CPU path's.  Times a
+   warm compress and decompress (median of 3) and profiles one of each.
+2c. Region reads: on the order-preserving container of each field and
+   on ISABEL's plain one, ``decompress_roi`` of a box that straddles
+   tile boundaries on every axis, a box inside one tile and a one-cell
+   slab of full extent must equal the full decode's crop bit for bit and
+   decode exactly ``tiles_for_region``'s tiles (``DECODE_COUNTS``); one
+   ``decode_tiles_many`` over two containers must equal their
+   single-container reads.  Times the boundary box against the full
+   decompress.
 3. Width runs: the same entry points on full-size fields at bounds that
-   reach the int32 and int64 bins widths, and on 1-D and 2-D fields whose
-   tiles are the (1,1,4096) and (1,64,64) plan tiles.
+   reach the int32 and int64 bins widths (ISABEL's also on the plain
+   path), and on 1-D and 2-D fields whose tiles are the (1,1,4096) and
+   (1,64,64) plan tiles.
 4. Kernels against their plain PyTorch versions on the card, on the very
    operands the runs above handed each kernel (recorded per signature):
    bit equality required.  Times each kernel by its device time per
@@ -36,8 +58,11 @@ Phases; any failure exits nonzero before the last line is printed:
    computes each kernel's bound from the operands.
 5. Determinism: the 24 snapshot cases of
    ``benchmarks/baselines/determinism_hashes.json`` compressed on the card
-   must hash to the manifest (CPU <-> GPU byte identity) and round-trip
-   within their bound.
+   must hash to the manifest (CPU <-> GPU byte identity), and their
+   plain containers to ``src/repro_torch/data/plain_hashes.json`` (the
+   reference's plain containers), each with the default and with the
+   fused encode path (the compacted download; on the plain f32 cases the
+   fused value encode), and round-trip within their bound.
 
 Prints one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor repro.
@@ -58,6 +83,8 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 bandwidth
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit peak, for integer ops
+F64_OPS_PER_S = 34e12         # H100 SXM non-tensor f64 peak
+D2H_CEILING = 1.1             # compress download / container bytes
 EB = 1e-2
 ISABEL = ("turbulence", (100, 500, 500), "float32")
 MIRANDA = ("gaussians", (256, 384, 384), "float64")
@@ -70,6 +97,14 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/fused_encode.cu",
         "src/repro/kernels/fused_encode.py:110"),
     "decode_tiles_fused": (
+        "src/repro_torch/kernels/csrc/fused_decode.cu",
+        "src/repro/kernels/fused_decode.py:72"),
+    "encode_values_fused": (
+        "src/repro_torch/kernels/csrc/fused_encode.cu",
+        "src/repro/kernels/fused_encode.py:142"),
+    # kernel 3 without a subbin stream: the plain containers' decode,
+    # an XLA chain in the reference (engine/device.py:680)
+    "decode_tiles_fused_nosub": (
         "src/repro_torch/kernels/csrc/fused_decode.cu",
         "src/repro/kernels/fused_decode.py:72"),
 }
@@ -99,13 +134,17 @@ class Recorder:
     def __init__(self, device_mod):
         self.calls: dict[tuple, list] = {}
         for attr in ("solve_tiles_blockwise", "encode_ints_fused",
-                     "decode_tiles_fused"):
+                     "decode_tiles_fused", "encode_values_fused"):
             real = getattr(device_mod, attr)
             setattr(device_mod, attr, self._wrap(attr, real))
 
     def _wrap(self, name, real):
         def wrapped(*args):
-            key = (name,) + tuple(
+            # a decode without subbin arrays is its own kernel
+            kname = ("decode_tiles_fused_nosub"
+                     if name == "decode_tiles_fused" and args[2] is None
+                     else name)
+            key = (kname,) + tuple(
                 (tuple(a.shape), str(a.dtype)) if hasattr(a, "shape") else a
                 for a in args)
             kept = self.calls.setdefault(key, [])
@@ -202,9 +241,40 @@ def within_bound(x, y, eb) -> bool:
     return float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max()) <= bound
 
 
-# the kernels each path must launch
+# the kernels each path must launch, and those it must not
 PATH_KERNELS = {"compress": ("solve_tiles_blockwise", "encode_ints_fused"),
                 "decompress": ("decode_tiles_fused",)}
+PLAIN_KERNELS = {
+    ("compress", "float32"): (("encode_values_fused",),
+                              ("solve_tiles_blockwise", "encode_ints_fused")),
+    ("compress", "float64"): (("encode_ints_fused",),
+                              ("solve_tiles_blockwise", "encode_values_fused")),
+    ("decompress", "float32"): (("decode_tiles_fused_nosub",),
+                                ("decode_tiles_fused",)),
+    ("decompress", "float64"): (("decode_tiles_fused_nosub",),
+                                ("decode_tiles_fused",)),
+}
+
+
+def download_ratio(x, blob, counts: dict, eng, executor, info: dict,
+                   **kw) -> None:
+    """The compress that wrote ``blob`` (its ``TRANSFER_COUNTS`` in
+    ``counts``) downloaded its streams compacted: at most ``D2H_CEILING``
+    x the container.  A staged compress of the same field must give the
+    same bytes; its download ratio is recorded beside, and so is the
+    ratio word-level compaction alone would have given."""
+    ratio = counts["bytes_d2h"] / len(blob)
+    check(ratio <= D2H_CEILING,
+          f"{info['field']}: compress downloaded {ratio:.4f}x the container "
+          f"(ceiling {D2H_CEILING})")
+    executor.reset_transfer_counts()
+    staged = eng.compress(x, EB, encode_path="staged", **kw)
+    check(staged == blob, f"{info['field']}: the staged encode path writes "
+                          "another container")
+    word_form = counts["bytes_d2h"] + counts.get("bytes_d2h_byte_level_saved", 0)
+    info.update(d2h_ratio=ratio,
+                word_form_d2h_ratio=word_form / len(blob),
+                staged_d2h_ratio=executor.TRANSFER_COUNTS["bytes_d2h"] / len(blob))
 
 
 def main_path(name, shape, dtype, eng, executor, kernels, topology,
@@ -227,6 +297,7 @@ def main_path(name, shape, dtype, eng, executor, kernels, topology,
     cold_c = time.perf_counter() - t0
     launches[f"{field} compress"] = dict(kernels.LAUNCHES)
     rounds = executor.TRANSFER_COUNTS["d2h_round"]
+    counts = dict(executor.TRANSFER_COUNTS)
     kernels.reset_launches()
     t0 = time.perf_counter()
     y = eng.decompress(blob)
@@ -241,13 +312,153 @@ def main_path(name, shape, dtype, eng, executor, kernels, topology,
     check(within_bound(x, y, EB), f"{name}{shape}: point-wise bound violated")
     xt, yt = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
     check(order_preserved(xt, yt, topology), f"{name}{shape}: local order broken")
-    return (x, blob, y), {
+    info = {
         "field": field,
         "raw_MB": x.nbytes / 1e6, "container_bytes": len(blob),
         "ratio": x.nbytes / len(blob), "cold_compress_s": cold_c,
         "cold_decompress_s": cold_d, "generate_s": gen_s,
         "halo_rounds": rounds, "n_sweeps": stats.n_sweeps,
     }
+    download_ratio(x, blob, counts, eng, executor, info)
+    return (x, blob, y), info
+
+
+def plain_path(name, shape, dtype, eng, executor, kernels, make_field,
+               launches: dict):
+    """Phase 2b: one full-size plain compress -> decompress through the
+    entry points; each path's launches counted alone and checked against
+    ``PLAIN_KERNELS``; bound, compacted download and staged bytes."""
+    import numpy as np
+
+    x = make_field(name, shape, np.dtype(dtype), seed=0)
+    field = f"{name}{'x'.join(map(str, shape))}/{dtype} plain"
+    executor.reset_transfer_counts()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    blob = eng.compress(x, EB, preserve_order=False)
+    cold_c = time.perf_counter() - t0
+    launches[f"{field} compress"] = dict(kernels.LAUNCHES)
+    counts = dict(executor.TRANSFER_COUNTS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    y = eng.decompress(blob)
+    cold_d = time.perf_counter() - t0
+    launches[f"{field} decompress"] = dict(kernels.LAUNCHES)
+    for (path, dt), (need, never) in PLAIN_KERNELS.items():
+        if dt != dtype:
+            continue
+        got = launches[f"{field} {path}"]
+        for k in need:
+            check(got.get(k, 0) > 0, f"{k} never launched on the {field} {path} path")
+        for k in never:
+            check(got.get(k, 0) == 0, f"{k} launched on the {field} {path} path")
+    check(y.shape == x.shape and y.dtype == x.dtype, f"{field}: bad output shape")
+    check(np.isfinite(y).all(), f"{field}: non-finite decode")
+    check(within_bound(x, y, EB), f"{field}: point-wise bound violated")
+    info = {"field": field, "raw_MB": x.nbytes / 1e6,
+            "container_bytes": len(blob), "ratio": x.nbytes / len(blob),
+            "cold_compress_s": cold_c, "cold_decompress_s": cold_d}
+    download_ratio(x, blob, counts, eng, executor, info, preserve_order=False)
+    return (x, blob, y), info
+
+
+def plain_reference(x, eb):
+    """The decoded field a plain container must give, on the card without
+    tiles: ``quantize_broadcast`` of the whole field, then ``decode_base``
+    and the ordered-int round trip with a zero subbin."""
+    import torch
+
+    from repro_torch.core import floatbits, quantize
+
+    xt = torch.from_numpy(x).cuda()
+    eps = quantize.effective_eps(quantize.abs_bound_from_mode(x, eb, "noa"))
+    bins = quantize.quantize_broadcast(xt, eps, xt.dtype)
+    base = quantize.decode_base(bins, eps, xt.dtype)
+    return floatbits.ordered_to_float(floatbits.float_to_ordered(base),
+                                      xt.dtype)
+
+
+def plain_agreement(x, blob, y, eng, info: dict, cpu_compress: bool) -> None:
+    """Phase 2b's independent checks: the whole-field plain reconstruction
+    on the card and, if ``cpu_compress``, the CPU path's container."""
+    import torch
+
+    check(bits_equal(torch.from_numpy(y).cuda(), plain_reference(x, EB)),
+          f"{info['field']}: decoded values differ from the whole-field "
+          "plain reconstruction")
+    if cpu_compress:
+        t0 = time.perf_counter()
+        blob_cpu = eng.compress(x, EB, preserve_order=False, device="cpu")
+        info["cpu_compress_s"] = time.perf_counter() - t0
+        check(blob_cpu == blob, f"{info['field']}: the CPU writes another "
+                                "container")
+    log(f"full size {info['field']}: decoded values equal the whole-field "
+        "plain reconstruction"
+        + ("; container equals the CPU's" if cpu_compress else ""))
+
+
+# (tile-straddling box, box inside one (16, 16, 64) tile, one-cell slab)
+ROI_REGIONS = {
+    "straddle": (slice(10, 40), slice(100, 170), slice(50, 200)),
+    "one tile": (slice(17, 30), slice(20, 30), slice(70, 120)),
+    "slab": (slice(50, 51), slice(None), slice(None)),
+}
+
+
+def roi_phase(containers, eng, executor) -> dict:
+    """Phase 2c: region reads of full-size containers against the full
+    decode's crop, with the decoded tiles counted; one
+    ``decode_tiles_many`` across two containers; the straddling box
+    timed against the full decompress."""
+    import numpy as np
+
+    from repro_torch.core import bitstream
+
+    out = {}
+    for label, blob in containers.items():
+        full = eng.decompress(blob)
+        c = bitstream.read_container_v2(blob)
+        layout = eng.container_layout(c)
+        rows = {}
+        for rname, region in ROI_REGIONS.items():
+            executor.reset_decode_counts()
+            got = eng.decompress_roi(blob, region)
+            ids = eng.tiles_for_region(layout, region)
+            check(got.tobytes() == np.ascontiguousarray(full[region]).tobytes(),
+                  f"ROI {rname} of {label}: differs from the full decode's crop")
+            check(executor.DECODE_COUNTS["tiles"] == len(ids),
+                  f"ROI {rname} of {label}: decoded "
+                  f"{executor.DECODE_COUNTS['tiles']} tiles, region needs {len(ids)}")
+            rows[rname] = {"tiles": len(ids), "of": layout.n_tiles,
+                           "shape": list(got.shape)}
+        t_roi, t_full = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.decompress_roi(blob, ROI_REGIONS["straddle"])
+            t_roi.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            eng.decompress(blob)
+            t_full.append(time.perf_counter() - t0)
+        rows["straddle_s"] = statistics.median(t_roi)
+        rows["full_decompress_s"] = statistics.median(t_full)
+        out[label] = rows
+        log(f"ROI {label}: 3 regions equal the full decode's crop, tiles "
+            + ", ".join(f"{k} {v['tiles']}/{v['of']}" for k, v in rows.items()
+                        if isinstance(v, dict))
+            + f"; straddling box {rows['straddle_s'] * 1e3:.1f} ms vs full "
+            f"decompress {rows['full_decompress_s'] * 1e3:.1f} ms (medians of 3)")
+    labels = list(containers)[:2]
+    runs = [(containers[lb], list(range(i, 40, 3))) for i, lb in enumerate(labels)]
+    executor.reset_decode_counts()
+    many = eng.decode_tiles_many(runs)
+    check(executor.DECODE_COUNTS["tiles"] == sum(len(t) for _, t in runs),
+          "decode_tiles_many decoded another number of tiles")
+    for (blob, ids), got in zip(runs, many):
+        one = eng.decode_tiles_for_region(blob, ids)
+        check(got.tobytes() == one.tobytes(),
+              "decode_tiles_many differs from the single-container read")
+    log(f"decode_tiles_many over {labels}: equals the single-container reads")
+    return out
 
 
 def whole_field_reference(x, eb):
@@ -320,7 +531,7 @@ def full_size_agreement(x, blob, y, eng, info: dict, cpu_compress: bool) -> None
         + ("; container equals the CPU's" if cpu_compress else ""))
 
 
-def warm_timing(x, blob, y, eng, info: dict) -> None:
+def warm_timing(x, blob, y, eng, info: dict, **kw) -> None:
     """Warm compress and decompress, median of 3; every run must give the
     same bytes and values again."""
     import torch
@@ -329,7 +540,7 @@ def warm_timing(x, blob, y, eng, info: dict) -> None:
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        b2 = eng.compress(x, EB)
+        b2 = eng.compress(x, EB, **kw)
         tc.append(time.perf_counter() - t0)
         check(b2 == blob, f"{info['field']}: compress not deterministic on the card")
         t0 = time.perf_counter()
@@ -342,7 +553,7 @@ def warm_timing(x, blob, y, eng, info: dict) -> None:
                 compress_s_runs=tc, decompress_s_runs=td)
 
 
-def profile(name, shape, dtype, eng, make_field) -> dict:
+def profile(name, shape, dtype, eng, make_field, **kw) -> dict:
     """Where one warm compress and one warm decompress spend their time:
     device time by kernel and memcpy (torch.profiler, CUPTI), the
     device's idle share of the wall time, and the host functions of the
@@ -357,9 +568,9 @@ def profile(name, shape, dtype, eng, make_field) -> dict:
     from torch.profiler import profile as torch_profile
 
     x = make_field(name, shape, np.dtype(dtype), seed=0)
-    blob = eng.compress(x, EB)
+    blob = eng.compress(x, EB, **kw)
     out = {}
-    for what, fn in (("compress", lambda: eng.compress(x, EB)),
+    for what, fn in (("compress", lambda: eng.compress(x, EB, **kw)),
                      ("decompress", lambda: eng.decompress(blob))):
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU,
@@ -423,6 +634,23 @@ def bound_ms(name, args, out) -> tuple[float, str]:
         bitmap, words, counts = out
         nbytes = ints.nbytes + bitmap.nbytes + words.nbytes + counts.nbytes
         ops = float(words.numel() * words.element_size() * 8)  # one per bit
+    elif name == "encode_values_fused":
+        x_int, eps = args[:2]
+        bitmap, words, counts = out
+        nbytes = (x_int.nbytes + eps.nbytes + bitmap.nbytes + words.nbytes
+                  + counts.nbytes)
+        # f64 per cell: one divide, then four decode_base evaluations (a
+        # subtract and a multiply each); the integer chain as above
+        t_f64 = x_int.numel() * 9 / F64_OPS_PER_S * 1e3
+        t_int = words.numel() * words.element_size() * 8 / INT_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return ((t_bytes, "bytes") if t_bytes >= t_f64 + t_int
+                else (t_f64 + t_int, "operations"))
+    elif name == "decode_tiles_fused_nosub":
+        bitmap, packed, _, _, eps = args[:5]
+        nbytes = (bitmap.nbytes + int((packed != 0).sum()) * packed.element_size()
+                  + eps.nbytes + out.nbytes)
+        ops = float(out.numel() * 8 * packed.element_size())
     else:
         bitmap, packed, sub_bitmap, sub_packed, eps = args[:5]
         read = sum(bm.nbytes + int((pk != 0).sum()) * pk.element_size()
@@ -447,6 +675,10 @@ def kernel_phase(rec, launches: dict):
                               fused_encode.encode_ints_plain),
         "decode_tiles_fused": (fused_decode.decode_tiles_fused,
                                fused_decode.decode_tiles_plain),
+        "encode_values_fused": (fused_encode.encode_values_fused,
+                                fused_encode.encode_values_plain),
+        "decode_tiles_fused_nosub": (fused_decode.decode_tiles_fused,
+                                     fused_decode.decode_tiles_plain),
     }
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -497,6 +729,9 @@ def kernel_phase(rec, launches: dict):
 
 # ----------------------------------------------------------------- main
 
+T0 = time.perf_counter()
+
+
 def main() -> None:
     import torch
 
@@ -543,9 +778,27 @@ def main() -> None:
         log(f"full size {r['field']}: ratio {r['ratio']:.3f}, compress "
             f"{r['compress_MB_s']:.1f} MB/s, decompress {r['decompress_MB_s']:.1f} "
             f"MB/s (warm medians of 3), {r['halo_rounds']} halo rounds, "
-            f"{r['n_sweeps']} sweeps; card {card}")
-    log(json.dumps({"full_size": results, "main_path_launches": launches}))
-    profiles = {cell[0]: profile(*cell, eng, field) for cell in (ISABEL, MIRANDA)}
+            f"{r['n_sweeps']} sweeps; download {r['d2h_ratio']:.4f}x the "
+            f"container (word-level form {r['word_form_d2h_ratio']:.4f}x, "
+            f"staged {r['staged_d2h_ratio']:.4f}x); card {card}")
+
+    # ---- 2b. plain path at full size
+    plain_runs = [plain_path(*cell, eng, executor, kernels, field, launches)
+                  for cell in (ISABEL, MIRANDA)]
+    for arrays, info in plain_runs:
+        warm_timing(*arrays, eng, info, preserve_order=False)
+        results.append(info)
+        log(f"full size {info['field']}: ratio {info['ratio']:.3f}, compress "
+            f"{info['compress_MB_s']:.1f} MB/s, decompress "
+            f"{info['decompress_MB_s']:.1f} MB/s (warm medians of 3); download "
+            f"{info['d2h_ratio']:.4f}x the container (word-level form "
+            f"{info['word_form_d2h_ratio']:.4f}x, staged "
+            f"{info['staged_d2h_ratio']:.4f}x); card {card}")
+    log("launches by path: " + json.dumps(launches))
+    log(json.dumps({"full_size": results, "launches_by_path": launches}))
+    profiles = {f"{cell[0]}{kind}": profile(*cell, eng, field, **kw)
+                for kind, kw in (("", {}), (" plain", {"preserve_order": False}))
+                for cell in (ISABEL, MIRANDA)}
     for cell, prof in profiles.items():
         for what, p in prof.items():
             busy = ("not measured (empty device trace)"
@@ -564,22 +817,32 @@ def main() -> None:
     # halo rounds far more slowly than the card
     for (arrays, info), cpu_compress in zip(runs, (True, False)):
         full_size_agreement(*arrays, eng, info, cpu_compress)
-    del runs
+    for (arrays, info), cpu_compress in zip(plain_runs, (True, False)):
+        plain_agreement(*arrays, eng, info, cpu_compress)
+
+    # ---- 2c. region reads of the full-size containers
+    roi = roi_phase({runs[0][1]["field"]: runs[0][0][1],
+                     plain_runs[0][1]["field"]: plain_runs[0][0][1],
+                     runs[1][1]["field"]: runs[1][0][1]}, eng, executor)
+    del runs, plain_runs
 
     # ---- 3. width and tile-shape runs (same entry points, not counted):
-    # the full-size fields again at bounds that need int32 / int64 bins,
+    # the full-size fields again at bounds that need int32 / int64 bins
+    # (isabel's also on the plain path: the value encode's int32 store),
     # 1-D and 2-D fields on their plan tiles, and a strictly decreasing
     # run of 40000 floats inside one bin, whose subbins count down from
     # 39999 and so need the int32 subbin section
     n = 40000
     chain = (1.0 + (n - np.arange(n)) * 2.0**-23).astype(np.float32)
-    widths = [(f"{ISABEL[0]}{ISABEL[1]}", field(*ISABEL[:2], np.dtype(ISABEL[2]), seed=0), 1e-6, "noa"),
-              (f"{MIRANDA[0]}{MIRANDA[1]}", field(*MIRANDA[:2], np.dtype(MIRANDA[2]), seed=0), 1e-11, "noa"),
-              ("waves(1048576,)", field("waves", (1 << 20,), np.dtype("float32"), seed=0), 1e-2, "noa"),
-              ("front(2048, 2048)", field("front", (2048, 2048), np.dtype("float64"), seed=0), 1e-2, "noa"),
-              ("decreasing-run(40000,)", chain, 1.0, "abs")]
-    for label, x, eb, mode in widths:
-        blob = eng.compress(x, eb, mode=mode)
+    isabel = field(*ISABEL[:2], np.dtype(ISABEL[2]), seed=0)
+    widths = [(f"{ISABEL[0]}{ISABEL[1]}", isabel, 1e-6, "noa", True),
+              (f"{ISABEL[0]}{ISABEL[1]} plain", isabel, 1e-6, "noa", False),
+              (f"{MIRANDA[0]}{MIRANDA[1]}", field(*MIRANDA[:2], np.dtype(MIRANDA[2]), seed=0), 1e-11, "noa", True),
+              ("waves(1048576,)", field("waves", (1 << 20,), np.dtype("float32"), seed=0), 1e-2, "noa", True),
+              ("front(2048, 2048)", field("front", (2048, 2048), np.dtype("float64"), seed=0), 1e-2, "noa", True),
+              ("decreasing-run(40000,)", chain, 1.0, "abs", True)]
+    for label, x, eb, mode, order in widths:
+        blob = eng.compress(x, eb, mode=mode, preserve_order=order)
         y = eng.decompress(blob)
         bound = eb if mode == "abs" else eb * (float(x.max()) - float(x.min()))
         err = float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max())
@@ -588,34 +851,46 @@ def main() -> None:
         log(f"width run {label}/{x.dtype} eb {eb} {mode}: ratio "
             f"{x.nbytes / len(blob):.3f}, section words (bins, subbins) {words}")
     check(words[1] == 4, "the decreasing run did not reach int32 subbins")
+    check(any(k[0] == "encode_values_fused" and k[-1] == torch.int32
+              for k in rec.calls), "the value encode never stored int32 bins")
 
     # ---- 4. kernels against plain versions on the recorded operands
     rows = kernel_phase(rec, launches)
 
-    # ---- 5. determinism manifest on the card
+    # ---- 5. determinism manifests on the card: the order-preserving
+    # containers (default and fused encode path) and the plain ones
     manifest = json.loads(
         (ROOT / "benchmarks" / "baselines" / "determinism_hashes.json").read_text())
+    plain_hashes = json.loads(
+        (SRC / "repro_torch" / "data" / "plain_hashes.json").read_text())
     n = 0
     for name in sorted(FIELD_GENERATORS):
         for shape in ((13, 11, 9), (40, 28), (500,)):
             for dtype in ("float32", "float64"):
                 case = f"{name}/{'x'.join(map(str, shape))}/{dtype}"
                 x = make_scientific_field(name, shape, np.dtype(dtype), seed=5)
-                blob = eng.compress(x, EB)
-                check(hashlib.sha256(blob).hexdigest() == manifest[case],
-                      f"{case}: container hash differs from the manifest")
-                check(within_bound(x, eng.decompress(blob), EB),
-                      f"{case}: round trip exceeds the bound")
+                for want, kw in ((manifest, {}),
+                                 (manifest, {"encode_path": "fused"}),
+                                 (plain_hashes, {"preserve_order": False}),
+                                 (plain_hashes, {"preserve_order": False,
+                                                 "encode_path": "fused"})):
+                    blob = eng.compress(x, EB, **kw)
+                    check(hashlib.sha256(blob).hexdigest() == want[case],
+                          f"{case} {kw}: container hash differs from the manifest")
+                    check(within_bound(x, eng.decompress(blob), EB),
+                          f"{case} {kw}: round trip exceeds the bound")
                 n += 1
-    check(n == 24, "manifest cases missing")
-    log(f"determinism: {n}/24 manifest hashes reproduced on the card")
+    check(n == 24 and len(plain_hashes) == 24, "manifest cases missing")
+    log(f"determinism: {n}/24 manifest hashes and {n}/24 plain hashes "
+        "reproduced on the card, each with the default and the fused encode path")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "full_size": results,
-         "profiles": profiles,
-         "main_path_launches": launches, "kernels": rows}, indent=1))
+         "profiles": profiles, "roi": roi,
+         "launches_by_path": launches, "kernels": rows,
+         "seconds": time.perf_counter() - T0}, indent=1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Every stage is a torch op or a kernel wrapper on tensors that stay on the
 executor's device between stages; nothing crosses to the host between
 the tile upload and the stream download except one boolean per halo
-round (does any tile still move) and the subbin maximum.
+round (does any tile still move), the subbin maximum and, on the
+compacted download, the stream totals.
 
 The merged-3D layout: a (C, t0+2, t1+2, t2+2) haloed tile batch is
 computed on as the 3-D array (C*(t0+2), t1+2, t2+2).  An interior cell's
@@ -18,7 +19,7 @@ import torch
 from ..core import topology
 from ..core.quantize import quantize_broadcast
 from ..kernels.fused_decode import decode_tiles_fused
-from ..kernels.fused_encode import encode_ints_fused
+from ..kernels.fused_encode import encode_ints_fused, encode_values_fused
 from ..kernels.subbin_sweep import solve_tiles_blockwise
 
 SOLVERS = ("auto", "jacobi", "frontier", "blockwise")
@@ -38,13 +39,15 @@ def _split_interior(x_m: torch.Tensor, c: int) -> torch.Tensor:
     return x_m.reshape(c, h0, *x_m.shape[1:])[:, 1:-1, 1:-1, 1:-1]
 
 
-def resident_quantize(x_h: torch.Tensor, eps: torch.Tensor, dtype: torch.dtype):
+def resident_quantize(x_h: torch.Tensor, eps: torch.Tensor, dtype: torch.dtype,
+                      preserve_order: bool = True):
     """Quantize one resident tile batch.  NaN in ``x_h`` marks cells
     outside the field (tile pad, halo border, pad tiles).
 
     Returns (bins_enc (C, *t) with 0 at invalid cells, merged bins with
     the ``iinfo.min`` sentinel at invalid cells, merged values with
-    ``+inf`` at invalid cells)."""
+    ``+inf`` at invalid cells); the plain path needs only the first, and
+    gets ``None`` for the other two."""
     valid_h = torch.isfinite(x_h)
     x0 = torch.where(valid_h, x_h, torch.zeros((), dtype=x_h.dtype,
                                                 device=x_h.device))
@@ -52,6 +55,8 @@ def resident_quantize(x_h: torch.Tensor, eps: torch.Tensor, dtype: torch.dtype):
     sentinel = torch.iinfo(bins_h.dtype).min
     bins_h = torch.where(valid_h, bins_h, sentinel)
     bins_enc = torch.where(_interior(valid_h), _interior(bins_h), 0)
+    if not preserve_order:
+        return bins_enc, None, None
     vals_m = _merge(torch.where(valid_h, x0, float("inf")))
     return bins_enc, _merge(bins_h), vals_m
 
@@ -116,3 +121,98 @@ def resident_decode_order(bitmap, packed, sub_bitmap, sub_packed, eps,
     """Decode an order-preserving tile batch -> (C, tile_elems) values."""
     return decode_tiles_fused(bitmap, packed, sub_bitmap, sub_packed, eps,
                               tile_elems, dtype)
+
+
+def resident_decode_plain(bitmap, packed, eps, tile_elems: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Decode a tile batch without a subbin stream (preserve_order=False)
+    -> (C, tile_elems) values: kernel 3's no-subbin instantiation."""
+    return decode_tiles_fused(bitmap, packed, None, None, eps, tile_elems,
+                              dtype)
+
+
+def resident_encode_fused(x_h: torch.Tensor, eps: torch.Tensor,
+                          dtype: torch.dtype, bins_store: torch.dtype,
+                          bins_chunk: int):
+    """The plain f32 compress as one kernel over the haloed tile batch:
+    the interiors are sliced out here into a contiguous (C, tile_elems)
+    copy on the device (the reference's ``_interior`` reshape; for 1-D
+    and 2-D tiles a reshape alone can leave a strided view), then
+    quantize -> delta/zigzag -> BIT -> RZE bitmap in
+    ``encode_values_fused``."""
+    x_int = _interior(x_h).reshape(x_h.shape[0], -1).contiguous()
+    return encode_values_fused(x_int, eps, bins_chunk, dtype, bins_store)
+
+
+def _front_pack(flat: torch.Tensor, live: torch.Tensor):
+    """Live entries of ``flat`` front-packed in order and zeros after
+    them, by one unique-index scatter (no host sync) -> (dense, total)."""
+    idt = torch.int32 if flat.numel() < 2**31 else torch.int64
+    cum = torch.cumsum(live, 0, dtype=idt)
+    total = cum[-1]
+    cum_dead = torch.cumsum(~live, 0, dtype=idt)
+    dest = torch.where(live, cum - 1, total + cum_dead - 1)
+    dense = torch.zeros_like(flat).scatter_(0, dest.long(),
+                                            torch.where(live, flat, 0))
+    return dense, total
+
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def _pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """A bool vector (length a multiple of 8) packed MSB-first to uint8,
+    as ``np.packbits``."""
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=mask.device)
+    return (mask.reshape(-1, 8).to(torch.int32) * weights).sum(1).to(torch.uint8)
+
+
+def _zero_bytes_out(dense: torch.Tensor):
+    """Byte-level zero elimination of a word buffer (the container's
+    final RZE_1 stage, as a transport): -> (nonzero-byte mask packed
+    MSB-first, the nonzero bytes front-packed, their count).  Bytes are
+    the words' little-endian bytes, as the host's ``view(np.uint8)``."""
+    b = dense.view(torch.uint8)
+    live = b != 0
+    nz, total = _front_pack(b, live)
+    return _pack_bits(live), nz, total
+
+
+def compact_streams(bitmap: torch.Tensor, words: torch.Tensor):
+    """Device-side compaction of one encoded stream for the download.
+
+    Returns ``(keepmap, kept, words, totals)``:
+
+    - ``words = (dense, mask, nz)``: ``dense`` holds every nonzero word
+      of ``words`` front-packed in row-major order (row-major global
+      order equals per-row compaction concatenated); ``mask``/``nz`` are
+      the same run with its zero bytes eliminated (nonzero-byte mask
+      packed MSB-first, nonzero bytes front-packed);
+    - ``keepmap`` and ``kept = (dense, mask, nz)``: the bitmap words that
+      differ from their predecessor (repeat elimination) and their keep
+      mask packed MSB-first as uint8, the kept run also in its
+      zero-byte-eliminated form;
+    - ``totals``: (nonzero words, kept bitmap words, nonzero bytes of
+      the word run, nonzero bytes of the kept run) int64, the one small
+      fetch that sizes the real download and picks, per run, the
+      smaller of the word and the byte form.
+
+    The reference compacts at word level only; the byte level mirrors
+    the container's own final byte-level RZE, without which words with
+    zero bytes (small deltas of smooth fields) travel at up to twice
+    their serialized size.  Words are signed twins: ``!= 0`` and the
+    repeat test compare bit patterns, so both levels are exact.  Per-row
+    counts are not sent: they are the bitmap rows' popcounts.
+    """
+    flat_w = words.reshape(-1)
+    words_dense, total_words = _front_pack(flat_w, flat_w != 0)
+    flat_b = bitmap.reshape(-1)
+    keep = torch.ones_like(flat_b, dtype=torch.bool)
+    keep[1:] = flat_b[1:] != flat_b[:-1]
+    kept_dense, total_kept = _front_pack(flat_b, keep)
+    kept_mask, kept_nz, nz_kept = _zero_bytes_out(kept_dense)
+    words_mask, words_nz, nz_words = _zero_bytes_out(words_dense)
+    totals = torch.stack([t.to(torch.int64) for t in
+                          (total_words, total_kept, nz_words, nz_kept)])
+    return (_pack_bits(keep), (kept_dense, kept_mask, kept_nz),
+            (words_dense, words_mask, words_nz), totals)

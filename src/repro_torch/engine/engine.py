@@ -2,7 +2,10 @@
 
 ``compress_many`` turns a mix of 1/2/3-D field requests into shared
 fixed-shape tile batches (plan), runs them on the device (execute, see
-``executor``), and serializes one v2 container per request.  Containers
+``executor``), and serializes one v2 container per request, with the
+subbin stream (``preserve_order=True``) or without it (the plain path).
+``decompress`` reads a whole field back, ``decompress_roi`` and
+``decode_tiles_for_region`` only the tiles a region touches.  Containers
 are byte-identical to the reference's and decoded values bit-identical.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; with no
@@ -22,7 +25,7 @@ from ..core import bitstream
 from ..core.nonfinite import decode_nonfinite, encode_nonfinite
 from ..core.quantize import abs_bound_from_mode, bin_dtype_for, check_bin_range, effective_eps
 from . import device as _device
-from .executor import default_executor
+from .executor import DECODE_PATHS, default_executor
 from .plan import (
     HALO,
     CompressionPlan,
@@ -31,10 +34,13 @@ from .plan import (
     extract_halo_tiles,
     padded_with_border,
     scatter_interiors,
+    tiles_for_region,
 )
 
 FLAG_ORDER_PRESERVING = bitstream.FLAG_ORDER_PRESERVING
 FLAG_HAS_NONFINITE = bitstream.FLAG_HAS_NONFINITE
+
+ADAPTIVE_EB_MODES = ("off", "tda")
 
 DEFAULT_PLAN = CompressionPlan()
 
@@ -71,6 +77,31 @@ def _not_in_slice(what: str, row: int, name: str):
     raise NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md module queue row {row} "
         f"({name}) brings it")
+
+
+def _check_decode_path(decode_path: str) -> None:
+    if decode_path not in DECODE_PATHS:
+        raise ValueError(f"unknown decode path {decode_path!r}")
+
+
+# -------------------------------------------- nonfinite sidecar (ROI form)
+
+def decode_nonfinite_region(payload: bytes, out_region: np.ndarray,
+                            full_shape: tuple[int, ...],
+                            region: tuple[slice, ...]) -> np.ndarray:
+    """ROI variant: the sidecar indexes the full grid, so the mask and
+    value streams are sliced down to the requested region."""
+    r = bitstream.Reader(payload)
+    packed = np.frombuffer(r.lp(), np.uint8)
+    vals = np.frombuffer(r.lp(), out_region.dtype)
+    n = int(np.prod(full_shape))
+    mask = np.unpackbits(packed, count=n).astype(bool).reshape(full_shape)
+    # value k of the sidecar belongs to the k-th masked cell in C order
+    pos = np.cumsum(mask.reshape(-1)).reshape(full_shape) - 1
+    m = mask[region]
+    out_region = out_region.copy()
+    out_region[m] = vals[pos[region][m]]
+    return out_region
 
 
 # ------------------------------------------------------------ validation
@@ -132,40 +163,55 @@ def _store_bin_dtype(max_bin: float, dtype) -> np.dtype:
 
 
 def _serialize_tile_sections(streams, n_tiles: int, cpt: int):
-    """Split batched raw chunk rows into per-tile RZE sections, trimming
-    each tile's trailing all-zero chunks (decode restores them as
-    zeros)."""
+    """Split a group's streams into per-tile RZE sections, trimming each
+    tile's trailing all-zero chunks (decode restores them as zeros).
+    ``streams`` is (bitmap rows, the rows' nonzero words front-packed in
+    row-major order, per-row counts), so each tile's words are a
+    prefix-sum slice of the run."""
     bitmap, packed, counts = streams
+    chunk_len = bitmap.shape[1] * packed.dtype.itemsize * 8
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     out = []
     for j in range(n_tiles):
         nz = np.flatnonzero(counts[j * cpt : (j + 1) * cpt])
         keep = int(nz[-1]) + 1 if nz.size else 0
-        rows = slice(j * cpt, j * cpt + keep)
-        out.append(bitstream.serialize_rze_section(
-            bitmap[rows], packed[rows], counts[rows], compacted=False))
+        out.append(bitstream.serialize_rze_section_flat(
+            bitmap[j * cpt : j * cpt + keep],
+            packed[offsets[j * cpt] : offsets[j * cpt + keep]],
+            chunk_len))
     return out
 
 
 def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
                   solver: str = "auto", plan: CompressionPlan | None = None,
                   return_stats: bool = False, put=None, group_cb=None,
-                  adaptive_eb: str = "off", device="cuda"):
+                  encode_path: str = "auto", adaptive_eb: str = "off",
+                  device="cuda"):
     """Compress a batch of scalar fields into v2 containers.
 
     ``fields`` may mix shapes, ranks and dtypes; ``eb`` is one bound or
     one per field.  Tiles of all requests sharing (dtype, tile shape,
-    bins width) ride shared device batches.  ``solver`` accepts the
-    reference's values; every schedule reaches the same least fixed
-    point, and the tile-local solve always runs the blockwise kernel.
+    bins width) ride shared device batches.  ``preserve_order=False``
+    writes plain containers (bins only: the bound holds, the local order
+    is not kept).  ``solver`` accepts the reference's values; every
+    schedule reaches the same least fixed point, and the tile-local
+    solve always runs the blockwise kernel.  ``encode_path``
+    (``staged``/``fused``/``auto``) picks the download form and, for
+    plain f32 fields, the fused value encode; every path gives the same
+    bytes (see ``executor``).
 
     Returns a list of blobs, or (blobs, stats) when ``return_stats``.
     """
     if solver not in _device.SOLVERS:
         raise ValueError(f"unknown solver method {solver!r}")
+    if adaptive_eb not in ADAPTIVE_EB_MODES:
+        raise ValueError(f"unknown adaptive_eb mode {adaptive_eb!r} "
+                         f"(expected one of {ADAPTIVE_EB_MODES})")
+    if adaptive_eb != "off" and not preserve_order:
+        raise ValueError("adaptive_eb requires preserve_order=True (the "
+                         "ladder exists to protect topology)")
     if adaptive_eb != "off":
         _not_in_slice("adaptive_eb", 9, "adaptive eb")
-    if not preserve_order:
-        _not_in_slice("preserve_order=False", 8, "the plain path")
     if put is not None:
         _not_in_slice("put", 13, "distributed")
     if group_cb is not None:
@@ -179,7 +225,7 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
     if len(ebs) != len(fields):
         raise ValueError("eb must be a scalar or one bound per field")
     reqs = [_Request(x, e, mode, plan) for x, e in zip(fields, ebs)]
-    ex = default_executor(plan, dev)
+    ex = default_executor(plan, dev, encode_path)
 
     groups: dict[tuple, list[int]] = {}
     for i, r in enumerate(reqs):
@@ -190,13 +236,14 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
     stats: list[CompressStats | None] = [None] * len(reqs)
     for (dtype, _tile, _store), members in groups.items():
         _compress_group([reqs[i] for i in members], dtype, ex,
-                        [blobs, stats], members, return_stats)
+                        preserve_order, [blobs, stats], members, return_stats)
     if return_stats:
         return blobs, stats
     return blobs
 
 
-def _compress_group(reqs, dtype, ex, out, members, return_stats):
+def _compress_group(reqs, dtype, ex, preserve_order, out, members,
+                    return_stats):
     """Build the NaN-marked haloed tile batch of one group, run the
     executor, serialize one v2 container per request."""
     blobs, stats = out
@@ -212,18 +259,23 @@ def _compress_group(reqs, dtype, ex, out, members, return_stats):
 
     gs = ex.compress_tiles(
         np.concatenate(x_tiles), np.concatenate(eps_tiles),
-        tuple(r.layout for r in reqs), dtype, bins_store=reqs[0].bins_store)
+        tuple(r.layout for r in reqs), dtype, preserve_order,
+        bins_store=reqs[0].bins_store)
 
     # per-request solver diagnostics (sweeps are never serialized)
-    for r, (lo, hi) in zip(reqs, ranges):
-        local = int(gs.local_sweeps[lo:hi].max(initial=0))
-        rounds = int(gs.last_round[lo:hi].max(initial=0))
-        r.sweeps = local + max(0, rounds - 1)
+    if preserve_order:
+        for r, (lo, hi) in zip(reqs, ranges):
+            local = int(gs.local_sweeps[lo:hi].max(initial=0))
+            rounds = int(gs.last_round[lo:hi].max(initial=0))
+            r.sweeps = local + max(0, rounds - 1)
 
     bins_sections = _serialize_tile_sections(gs.bins, n_total, gs.bins_cpt)
-    sub_sections = _serialize_tile_sections(gs.subs, n_total, gs.subs_cpt)
+    if preserve_order:
+        sub_sections = _serialize_tile_sections(gs.subs, n_total, gs.subs_cpt)
+    else:
+        sub_sections = [b""] * n_total
     for r, (lo, hi), i in zip(reqs, ranges, members):
-        flags = FLAG_ORDER_PRESERVING
+        flags = FLAG_ORDER_PRESERVING if preserve_order else 0
         extra = {}
         if r.nonfinite is not None:
             flags |= FLAG_HAS_NONFINITE
@@ -246,12 +298,12 @@ def _compress_group(reqs, dtype, ex, out, members, return_stats):
 
 
 def compress(field, eb, mode="noa", preserve_order=True, solver="auto",
-             plan=None, return_stats=False, put=None, adaptive_eb="off",
-             device="cuda"):
+             plan=None, return_stats=False, put=None, encode_path="auto",
+             adaptive_eb="off", device="cuda"):
     """Single-field convenience wrapper over :func:`compress_many`."""
     out = compress_many([field], eb, mode, preserve_order, solver, plan,
-                        return_stats, put, adaptive_eb=adaptive_eb,
-                        device=device)
+                        return_stats, put, encode_path=encode_path,
+                        adaptive_eb=adaptive_eb, device=device)
     if return_stats:
         blobs, stats = out
         return blobs[0], stats[0]
@@ -273,23 +325,29 @@ def container_layout(c) -> TileLayout:
     return layout
 
 
+def _as_container(reader) -> bitstream.ContainerV2:
+    """Accept a parsed v2 reader or raw blob bytes."""
+    if isinstance(reader, (bytes, bytearray, memoryview)):
+        return bitstream.read_container_v2(bytes(reader))
+    return reader
+
+
 def _decode_runs(runs, plan, dev):
     """Decode ``(container, layout, tile_ids)`` runs; tiles of every run
-    with one (dtype, tile shape, section words) signature share device
-    batches.  Returns one ``(len(tile_ids), *tile)`` array per run."""
+    with one (dtype, tile shape, order, section words) signature share
+    device batches.  Returns one ``(len(tile_ids), *tile)`` array per
+    run."""
     groups: dict[tuple, list[int]] = {}
     for i, (c, layout, tile_ids) in enumerate(runs):
         if not tile_ids:
             continue
-        if not c.header.flags & FLAG_ORDER_PRESERVING:
-            _not_in_slice("decoding a preserve_order=False container", 8,
-                          "the plain path")
-        groups.setdefault((np.dtype(c.header.dtype), layout.tile,
+        order = bool(c.header.flags & FLAG_ORDER_PRESERVING)
+        groups.setdefault((np.dtype(c.header.dtype), layout.tile, order,
                            c.stream_words()), []).append(i)
     outs = [np.empty((0,) + tuple(layout.tile), np.dtype(c.header.dtype))
             for c, layout, _ in runs]
     ex = default_executor(plan, dev)
-    for (dtype, tile, words), members in groups.items():
+    for (dtype, tile, order, words), members in groups.items():
         items, spans = [], []
         for i in members:
             c, layout, tile_ids = runs[i]
@@ -300,10 +358,50 @@ def _decode_runs(runs, plan, dev):
             items.extend((c, t, eps_eff * 2.0 ** -int(ladder[t]))
                          for t in tile_ids)
             spans.append((i, start, len(items)))
-        values = ex.decode_items(items, tile, dtype, words)
+        values = ex.decode_items(items, tile, dtype, order, words)
         for i, lo, hi in spans:
             outs[i] = values[lo:hi]
     return outs
+
+
+def decode_tiles_for_region(reader, tile_ids,
+                            plan: CompressionPlan | None = None,
+                            decode_path: str = "auto",
+                            device="cuda") -> np.ndarray:
+    """Tile-granular decode -> values ``(len(tile_ids), *tile)``.
+
+    ``reader`` is a parsed :class:`~repro_torch.core.bitstream.ContainerV2`
+    or raw blob bytes.  Decodes exactly the requested tiles (the
+    primitive under ``decompress_roi``); ``executor.DECODE_COUNTS``
+    counts every tile that passes through.  ``decode_path`` takes the
+    reference's values and is validated; every value decodes with the
+    port's one decode kernel (kernel 3), which gives the reference's
+    values on each of its paths.
+    """
+    _check_decode_path(decode_path)
+    dev = resolve_device(device)
+    c = _as_container(reader)
+    return _decode_runs([(c, container_layout(c), list(tile_ids))],
+                        plan or DEFAULT_PLAN, dev)[0]
+
+
+def decode_tiles_many(runs, plan: CompressionPlan | None = None,
+                      group_cb=None, decode_path: str = "auto",
+                      device="cuda") -> list[np.ndarray]:
+    """Batched :func:`decode_tiles_for_region`: ``runs`` is a list of
+    ``(reader, tile_ids)`` pairs, and tiles of all runs sharing one
+    (dtype, tile, order, words) signature share device batches.
+    ``decode_path`` as in :func:`decode_tiles_for_region`.
+    """
+    _check_decode_path(decode_path)
+    if group_cb is not None:
+        _not_in_slice("group_cb", 12, "serving stack")
+    dev = resolve_device(device)
+    parsed = []
+    for reader, tile_ids in runs:
+        c = _as_container(reader)
+        parsed.append((c, container_layout(c), list(tile_ids)))
+    return _decode_runs(parsed, plan or DEFAULT_PLAN, dev)
 
 
 def assemble_interiors(values: np.ndarray, layout: TileLayout,
@@ -324,15 +422,21 @@ def _assemble_field(values, c, layout: TileLayout):
 
 
 def decompress(blob: bytes, plan: CompressionPlan | None = None,
-               device="cuda") -> np.ndarray:
-    """Reconstruct a full field from a v2 container."""
-    return decompress_many([blob], plan, device=device)[0]
+               decode_path: str = "auto", device="cuda") -> np.ndarray:
+    """Reconstruct a full field from a v2 container.  ``decode_path`` as
+    in :func:`decode_tiles_for_region`."""
+    return decompress_many([blob], plan, decode_path=decode_path,
+                           device=device)[0]
 
 
 def decompress_many(blobs, plan: CompressionPlan | None = None,
-                    device="cuda"):
+                    group_cb=None, decode_path: str = "auto", device="cuda"):
     """Batched decode: tiles of all containers with one (tile shape,
-    dtype, words) signature share device batches."""
+    dtype, order, words) signature share device batches.
+    ``decode_path`` as in :func:`decode_tiles_for_region`."""
+    _check_decode_path(decode_path)
+    if group_cb is not None:
+        _not_in_slice("group_cb", 12, "serving stack")
     dev = resolve_device(device)
     plan = plan or DEFAULT_PLAN
     parsed = []
@@ -344,3 +448,70 @@ def decompress_many(blobs, plan: CompressionPlan | None = None,
     return [_assemble_field(v, c, layout)
             for v, (c, layout, _) in zip(values, parsed)]
 
+
+def decompress_roi(blob: bytes, region: tuple[slice, ...],
+                   plan: CompressionPlan | None = None,
+                   decode_path: str = "auto", device="cuda") -> np.ndarray:
+    """Partial decode: reconstruct only ``region`` of the field.
+
+    ``region`` has one slice per *original* field dimension.  Slice
+    semantics are numpy's: negative indices count from the end,
+    out-of-range stops clamp to the field extent, steps must be 1, and
+    the result equals ``decompress(blob)[region]`` exactly.  Zero-volume
+    regions (empty or reversed slices) return an empty array without
+    touching the device.  Non-finite cells in the region restore from
+    the sidecar.  Decodes exactly the tiles that intersect the region.
+    ``decode_path`` as in :func:`decode_tiles_for_region`.
+    """
+    _check_decode_path(decode_path)
+    if bitstream.container_version(blob) == bitstream.VERSION_CHAIN:
+        _not_in_slice("decompress_roi of a v3 chain container", 10,
+                      "temporal chains")
+    c = bitstream.read_container_v2(blob)
+    layout = container_layout(c)
+    tile_ids = tiles_for_region(layout, region)
+    values = decode_tiles_for_region(c, tile_ids, plan, decode_path, device)
+    return region_from_tiles(c, layout, region, dict(zip(tile_ids, values)))
+
+
+def region_from_tiles(c, layout: TileLayout, region: tuple[slice, ...],
+                      tiles: dict[int, np.ndarray]) -> np.ndarray:
+    """Assemble ``region`` of a field from decoded tile interiors.
+
+    ``tiles`` maps tile id -> decoded ``(*tile,)`` values and must cover
+    every tile intersecting the region.  Region semantics match
+    :func:`decompress_roi`.
+    """
+    shape = c.header.shape
+    tile_ids = tiles_for_region(layout, region)  # validates the region
+    # empty/reversed slices clamp to zero extent (numpy slicing semantics)
+    canon_region = (slice(0, 1),) * (3 - len(region)) + tuple(
+        slice(sl.indices(n)[0], max(sl.indices(n)[0], sl.indices(n)[1]))
+        for sl, n in zip(region, shape)
+    )
+    out_shape = tuple(sl.stop - sl.start for sl in canon_region)
+    final_shape = out_shape[3 - len(region):]
+    if not tile_ids or 0 in out_shape:
+        return np.empty(final_shape, np.dtype(c.header.dtype))
+    out = np.empty(out_shape, np.dtype(c.header.dtype))
+    g1, g2 = layout.grid[1], layout.grid[2]
+    t = layout.tile
+    for tid in tile_ids:
+        v = tiles[tid]
+        gi, rem = divmod(tid, g1 * g2)
+        gj, gk = divmod(rem, g2)
+        src, dst = [], []
+        for base, extent, sl in zip((gi * t[0], gj * t[1], gk * t[2]), t,
+                                    canon_region):
+            lo = max(base, sl.start)
+            hi = min(base + extent, sl.stop)
+            src.append(slice(lo - base, hi - base))
+            dst.append(slice(lo - sl.start, hi - sl.start))
+        out[tuple(dst)] = v[tuple(src)]
+    out = out.reshape(final_shape)
+    if c.header.flags & FLAG_HAS_NONFINITE:
+        out = decode_nonfinite_region(
+            c.extra_section(bitstream.TAG_NONFINITE), out, shape,
+            tuple(slice(*sl.indices(n)[:2]) for sl, n in zip(region, shape)),
+        )
+    return out

@@ -189,3 +189,35 @@ def scatter_interiors(tiles: np.ndarray, layout: TileLayout,
         blocks.reshape(p)
     )
 
+
+
+def tiles_for_region(layout: TileLayout, region: tuple[slice, ...]) -> list[int]:
+    """Row-major tile ids intersecting a region of the *original* field.
+
+    ``region`` has one slice per original field dim (start/stop only —
+    every axis's step is validated before any zero-extent early return,
+    so a bad step never slips through on an empty region).  Bounds
+    follow numpy slicing: negative indices count from the end, and
+    out-of-range stops clamp to the field extent.
+    """
+    if len(region) != len(layout.field_shape):
+        raise ValueError(
+            f"region has {len(region)} slices for a "
+            f"{len(layout.field_shape)}-D field"
+        )
+    resolved = [sl.indices(n) for sl, n in zip(region, layout.field_shape)]
+    if any(step != 1 for _, _, step in resolved):
+        raise ValueError("region slices must have step 1")
+    canon = [slice(0, 1)] * (3 - len(region))
+    for start, stop, _ in resolved:
+        if stop <= start:
+            return []
+        canon.append(slice(start, stop))
+    ranges = []
+    for sl, t, g in zip(canon, layout.tile, layout.grid):
+        ranges.append(range(sl.start // t, min(-(-sl.stop // t), g)))
+    g1, g2 = layout.grid[1], layout.grid[2]
+    return [
+        (i * g1 + j) * g2 + k
+        for i in ranges[0] for j in ranges[1] for k in ranges[2]
+    ]

@@ -16,7 +16,11 @@
 // Templated on the output float (f32 with int32 ordered ints, f64 with
 // int64) and on both stream word widths; the reference kernel is f32-only
 // for reasons of its TPU lowering, and its f64 staged chain computes the
-// same function.
+// same function.  A second entry point, `lopc_decode_tiles_plain`, decodes
+// a container without a subbin stream (preserve_order=False; the
+// reference's `resident_decode_plain` chain): the same bins phase, then
+// out = ordered_to_float(float_to_ordered(base) + 0), the ordered round
+// trip kept as the reference keeps it (it maps -0.0 to +0.0).
 //
 // What bounds it on this card: bytes (the streams in, the values out);
 // the arithmetic is a few integer instructions per bit.  One CTA owns one
@@ -169,44 +173,44 @@ __device__ A block_exclusive_scan(A v, A* sums) {
   return (A)(off + x - v);
 }
 
-template <int BW, int SW, typename F>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const typename Word<BW>::U* __restrict__ bins_bitmap,
-              const typename Word<BW>::U* __restrict__ bins_packed,
-              const typename Word<SW>::U* __restrict__ sub_bitmap,
-              const typename Word<SW>::U* __restrict__ sub_packed,
-              const double* __restrict__ eps, F* __restrict__ out,
-              int elems, int bins_cpt, int subs_cpt) {
+// Shared memory of a decode CTA: bins of the tile | shuffled chunk |
+// bitmap row | prefix | scan sums (each region aligned to 16 bytes;
+// 16 KiB chunk, 1 KiB bitmap row at most, 2 KiB prefix, 256 B sums).
+struct Smem {
+  unsigned char* scratch;
+  unsigned char* bm_raw;
+  int* pre;
+  uint64_t* sums;
+};
+
+template <typename BS>
+__device__ Smem carve(unsigned char* smem, int elems) {
+  const size_t bins_bytes = ((size_t)elems * sizeof(BS) + 15) / 16 * 16;
+  Smem m;
+  m.scratch = smem + bins_bytes;
+  m.bm_raw = m.scratch + 16384;
+  m.pre = reinterpret_cast<int*>(m.bm_raw + 1024);
+  m.sums = reinterpret_cast<uint64_t*>(m.bm_raw + 1024 + 2048);
+  return m;
+}
+
+// The bins phase of one tile: expand, un-transpose, dezigzag and the
+// wrapping scan of every chunk, into `bins` (shared, elems words).
+template <int BW>
+__device__ void decode_bins(const typename Word<BW>::U* __restrict__ bins_bitmap,
+                            const typename Word<BW>::U* __restrict__ bins_packed,
+                            long long tile, int elems, int bins_cpt,
+                            typename Word<BW>::S* bins, const Smem& m) {
   using BU = typename Word<BW>::U;
   using BS = typename Word<BW>::S;
   using BA = typename Word<BW>::A;
-  using SU = typename Word<SW>::U;
-  using SS = typename Word<SW>::S;
-  using SA = typename Word<SW>::A;
-  using I = typename Ord<F>::I;
-  using UI = typename Ord<F>::UI;
   constexpr int BL = Chunk<BW>::L, BK = Chunk<BW>::K;
-  constexpr int SL = Chunk<SW>::L, SK = Chunk<SW>::K;
-  // dynamic shared memory: bins of the tile | shuffled chunk | bitmap row
-  // | prefix | scan sums (each region aligned to 8 bytes)
-  extern __shared__ __align__(16) unsigned char smem[];
-  BS* bins = reinterpret_cast<BS*>(smem);
-  const size_t bins_bytes = ((size_t)elems * sizeof(BS) + 15) / 16 * 16;
-  unsigned char* scratch = smem + bins_bytes;
-  // 16 KiB chunk, 1 KiB bitmap row at most, 2 KiB prefix, 256 B sums
-  unsigned char* bm_raw = scratch + 16384;
-  int* pre = reinterpret_cast<int*>(bm_raw + 1024);
-  uint64_t* sums = reinterpret_cast<uint64_t*>(bm_raw + 1024 + 2048);
-
-  const long long tile = blockIdx.x;
   const int tid = threadIdx.x;
-
-  // ---- bins: expand, un-transpose, dezigzag, wrapping scan
   for (int c = 0; c < bins_cpt; ++c) {
     BA w[BK];
     load_chunk<BW>(bins_bitmap, bins_packed, tile * bins_cpt + c,
-                   reinterpret_cast<BU*>(scratch), reinterpret_cast<BU*>(bm_raw),
-                   pre, w);
+                   reinterpret_cast<BU*>(m.scratch),
+                   reinterpret_cast<BU*>(m.bm_raw), m.pre, w);
     BA run = 0;
 #pragma unroll
     for (int i = 0; i < BK; ++i) {
@@ -216,13 +220,37 @@ decode_kernel(const typename Word<BW>::U* __restrict__ bins_bitmap,
       run = (BA)(run + w[i]);
       w[i] = run;
     }
-    const BA off = block_exclusive_scan<BA>(run, reinterpret_cast<BA*>(sums));
+    const BA off = block_exclusive_scan<BA>(run, reinterpret_cast<BA*>(m.sums));
 #pragma unroll
     for (int i = 0; i < BK; ++i) {
       const long long e = (long long)c * BL + tid * BK + i;
       if (e < elems) bins[e] = (BS)(BU)(BA)(w[i] + off);
     }
   }
+}
+
+template <int BW, int SW, typename F>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const typename Word<BW>::U* __restrict__ bins_bitmap,
+              const typename Word<BW>::U* __restrict__ bins_packed,
+              const typename Word<SW>::U* __restrict__ sub_bitmap,
+              const typename Word<SW>::U* __restrict__ sub_packed,
+              const double* __restrict__ eps, F* __restrict__ out,
+              int elems, int bins_cpt, int subs_cpt) {
+  using BS = typename Word<BW>::S;
+  using SU = typename Word<SW>::U;
+  using SS = typename Word<SW>::S;
+  using SA = typename Word<SW>::A;
+  using I = typename Ord<F>::I;
+  using UI = typename Ord<F>::UI;
+  constexpr int SL = Chunk<SW>::L, SK = Chunk<SW>::K;
+  extern __shared__ __align__(16) unsigned char smem[];
+  BS* bins = reinterpret_cast<BS*>(smem);
+  const Smem m = carve<BS>(smem, elems);
+  const long long tile = blockIdx.x;
+  const int tid = threadIdx.x;
+
+  decode_bins<BW>(bins_bitmap, bins_packed, tile, elems, bins_cpt, bins, m);
 
   // ---- subbins: expand, un-transpose, then decode each value
   const double tile_eps = eps[tile];
@@ -230,8 +258,8 @@ decode_kernel(const typename Word<BW>::U* __restrict__ bins_bitmap,
   for (int c = 0; c < subs_cpt; ++c) {
     SA w[SK];
     load_chunk<SW>(sub_bitmap, sub_packed, tile * subs_cpt + c,
-                   reinterpret_cast<SU*>(scratch), reinterpret_cast<SU*>(bm_raw),
-                   pre, w);
+                   reinterpret_cast<SU*>(m.scratch),
+                   reinterpret_cast<SU*>(m.bm_raw), m.pre, w);
     // bins of this chunk were written by other threads
     __syncthreads();
 #pragma unroll
@@ -245,6 +273,31 @@ decode_kernel(const typename Word<BW>::U* __restrict__ bins_bitmap,
         dst[e] = Ord<F>::from_ordered((I)(UI)o);
       }
     }
+  }
+}
+
+// No subbin stream: every value is its bin's base, through the ordered
+// round trip with a zero subbin.
+template <int BW, typename F>
+__global__ void __launch_bounds__(kThreads)
+decode_plain_kernel(const typename Word<BW>::U* __restrict__ bins_bitmap,
+                    const typename Word<BW>::U* __restrict__ bins_packed,
+                    const double* __restrict__ eps, F* __restrict__ out,
+                    int elems, int bins_cpt) {
+  using BS = typename Word<BW>::S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  BS* bins = reinterpret_cast<BS*>(smem);
+  const Smem m = carve<BS>(smem, elems);
+  const long long tile = blockIdx.x;
+
+  decode_bins<BW>(bins_bitmap, bins_packed, tile, elems, bins_cpt, bins, m);
+  __syncthreads();  // bins were written by other threads
+
+  const double tile_eps = eps[tile];
+  F* dst = out + tile * (long long)elems;
+  for (int e = threadIdx.x; e < elems; e += kThreads) {
+    const F base = Ord<F>::base((long long)bins[e], tile_eps);
+    dst[e] = Ord<F>::from_ordered(Ord<F>::to_ordered(base));
   }
 }
 
@@ -298,6 +351,34 @@ cudaError_t launch_bins(int bw, int sw, const void* bbm, const void* bpk,
   }
 }
 
+template <int BW, typename F>
+cudaError_t launch_plain(const void* bbm, const void* bpk, const void* eps,
+                         void* out, int batch, int elems, int bins_cpt,
+                         cudaStream_t st) {
+  const size_t smem = smem_bytes(elems, BW / 8);
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_plain_kernel<BW, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  decode_plain_kernel<BW, F><<<batch, kThreads, smem, st>>>(
+      static_cast<const typename Word<BW>::U*>(bbm),
+      static_cast<const typename Word<BW>::U*>(bpk),
+      static_cast<const double*>(eps), static_cast<F*>(out), elems, bins_cpt);
+  return cudaGetLastError();
+}
+
+template <typename F>
+cudaError_t launch_plain_bins(int bw, const void* bbm, const void* bpk,
+                              const void* eps, void* out, int batch,
+                              int elems, int bcpt, cudaStream_t st) {
+  switch (bw) {
+    case 16: return launch_plain<16, F>(bbm, bpk, eps, out, batch, elems, bcpt, st);
+    case 32: return launch_plain<32, F>(bbm, bpk, eps, out, batch, elems, bcpt, st);
+    case 64: return launch_plain<64, F>(bbm, bpk, eps, out, batch, elems, bcpt, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -329,6 +410,31 @@ int lopc_decode_tiles(const void* bins_bitmap, const void* bins_packed,
   else if (float_bits == 64)
     err = launch_bins<double>(bw, sw, bins_bitmap, bins_packed, sub_bitmap,
                               sub_packed, eps, out, b, e, bc, sc, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// The bins stream alone (no subbin stream): as lopc_decode_tiles.
+int lopc_decode_tiles_plain(const void* bins_bitmap, const void* bins_packed,
+                            const void* eps, void* out, long long batch,
+                            long long elems, long long bins_bits,
+                            long long bins_cpt, long long float_bits,
+                            void* stream) {
+  if (batch == 0 || elems == 0) return 0;
+  if (smem_bytes(elems, (int)(bins_bits / 8)) > 232448 - 1024 ||
+      batch > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  const int b = (int)batch, e = (int)elems, bc = (int)bins_cpt,
+            bw = (int)bins_bits;
+  cudaError_t err;
+  if (float_bits == 32)
+    err = launch_plain_bins<float>(bw, bins_bitmap, bins_packed, eps, out, b,
+                                   e, bc, st);
+  else if (float_bits == 64)
+    err = launch_plain_bins<double>(bw, bins_bitmap, bins_packed, eps, out, b,
+                                    e, bc, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

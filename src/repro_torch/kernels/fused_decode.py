@@ -4,7 +4,9 @@
 RZE expand -> BIT_W un-transpose -> dezigzag + wrapping prefix sum
 (bins) or raw (subbins) -> ``decode_base`` with the per-tile eps -> the
 ordered-int subbin add.  Covers f32 and f64 outputs and every stream
-word width.
+word width.  Without a subbin stream (``sub_bitmap = sub_packed =
+None``, the plain path's containers) the subbin is 0 and the kernel's
+no-subbin instantiation runs.
 """
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ def decode_tiles_plain(bitmap, packed, sub_bitmap, sub_packed, eps,
     """Op-for-op torch version of the Pallas kernel body."""
     batch = eps.shape[0]
     bins = _expand_ints(bitmap, packed, batch, tile_elems, "delta")
-    subs = _expand_ints(sub_bitmap, sub_packed, batch, tile_elems, "raw")
+    if sub_bitmap is None:
+        subs = torch.zeros_like(bins)
+    else:
+        subs = _expand_ints(sub_bitmap, sub_packed, batch, tile_elems, "raw")
     base = decode_base(bins, eps[:, None], dtype)
     idt = int_dtype_for(dtype)
     # a subbin stream wider than the ordered ints accumulates in its own
@@ -47,16 +52,23 @@ def decode_tiles_plain(bitmap, packed, sub_bitmap, sub_packed, eps,
 def decode_tiles_fused(bitmap, packed, sub_bitmap, sub_packed, eps,
                        tile_elems: int, dtype: torch.dtype) -> torch.Tensor:
     """Decode a tile batch -> (batch, tile_elems) ``dtype``: the CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    kernel on CUDA tensors, the plain version on CPU tensors.  Pass
+    ``sub_bitmap = sub_packed = None`` for a batch without a subbin
+    stream (counted as ``decode_tiles_fused_nosub``)."""
     if not eps.is_cuda:
         return decode_tiles_plain(bitmap, packed, sub_bitmap, sub_packed, eps,
                                   tile_elems, dtype)
-    _lib.require_cuda(bitmap, packed, sub_bitmap, sub_packed, eps)
+    plain = sub_bitmap is None
+    if plain != (sub_packed is None):
+        raise ValueError("pass both subbin arrays or neither")
+    streams = ((bitmap, packed),) if plain else ((bitmap, packed),
+                                                 (sub_bitmap, sub_packed))
+    _lib.require_cuda(*(a for pair in streams for a in pair), eps)
     if dtype not in (torch.float32, torch.float64) or eps.dtype != torch.float64:
         raise ValueError("decode_tiles_fused decodes f32/f64 with f64 eps")
     batch = eps.shape[0]
     cpts = []
-    for bm, pk in ((bitmap, packed), (sub_bitmap, sub_packed)):
+    for bm, pk in streams:
         if bm.dtype != pk.dtype or bm.dtype not in (torch.int16, torch.int32,
                                                     torch.int64):
             raise ValueError("stream words must be int16/32/64 in both arrays")
@@ -72,9 +84,15 @@ def decode_tiles_fused(bitmap, packed, sub_bitmap, sub_packed, eps,
             raise ValueError("streams hold fewer chunks than a tile needs")
         cpts.append(cpt)
     out = torch.empty((batch, tile_elems), dtype=dtype, device=eps.device)
+    bits = torch.finfo(dtype).bits
+    if plain:
+        _lib.call("fused_decode", "lopc_decode_tiles_plain", bitmap, packed,
+                  eps, out, batch, tile_elems, width(packed.dtype), cpts[0],
+                  bits)
+        _lib.LAUNCHES["decode_tiles_fused_nosub"] += 1
+        return out
     _lib.call("fused_decode", "lopc_decode_tiles", bitmap, packed, sub_bitmap,
               sub_packed, eps, out, batch, tile_elems, width(packed.dtype),
-              width(sub_packed.dtype), cpts[0], cpts[1],
-              torch.finfo(dtype).bits)
+              width(sub_packed.dtype), cpts[0], cpts[1], bits)
     _lib.LAUNCHES["decode_tiles_fused"] += 1
     return out

@@ -293,10 +293,16 @@ def test_arguments_outside_the_slice_name_their_roadmap_row():
 
     x = np.linspace(0, 1, 64, dtype=np.float32).reshape(8, 8)
     for kw, row in [({"adaptive_eb": "tda"}, "row 9"),
-                    ({"preserve_order": False}, "row 8"),
                     ({"put": lambda a: a}, "row 13"),
                     ({"group_cb": print}, "row 12")]:
         with pytest.raises(NotImplementedError, match=row):
             engine.compress_many([x], 1e-2, device="cpu", **kw)
+    chain = (DATA / "fixture_v3.lopc").read_bytes()
+    with pytest.raises(NotImplementedError, match="row 10"):
+        engine.decompress_roi(chain, (slice(0, 2),) * 3, device="cpu")
+    # the reference's own argument error comes before the row-9 guard
+    with pytest.raises(ValueError, match="requires preserve_order=True"):
+        engine.compress(x, 1e-2, preserve_order=False, adaptive_eb="tda",
+                        device="cpu")
     with pytest.raises(ValueError):
         engine.compress(x, 1e-2, solver="nope", device="cpu")

@@ -24,6 +24,7 @@ from repro_torch.kernels import subbin_sweep as pt_ss
 CHUNK = {2: 8192, 4: 4096, 8: 2048}
 SIGNED = {2: np.int16, 4: np.int32, 8: np.int64}
 UNSIGNED = {2: np.uint16, 4: np.uint32, 8: np.uint64}
+TORCH_SIGNED = {2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -141,18 +142,74 @@ def test_decode_plain_matches_staged_reference_f64(rng, bins_word, subs_word):
     assert got.numpy().tobytes() == np.asarray(want).tobytes()
 
 
+def _values(rng, batch, elems, scale):
+    """f32 interiors with NaN pad cells, one NaN pad row, non-finite
+    cells, signed zeros, denormals and exact half-bin ties."""
+    x = (rng.standard_normal((batch, elems)) * scale).astype(np.float32)
+    x[:, elems - 37:] = np.nan          # tile pad
+    x[-1] = np.nan                      # a pad tile
+    x[0, 3], x[0, 4], x[0, 5] = np.inf, -np.inf, -0.0
+    x[0, 6:40] = np.float32(1e-41) * np.arange(34)
+    return x
+
+
+@pytest.mark.parametrize("word,batch,elems,block_tiles", [
+    (2, 3, 128, 2), (4, 3, 128, 2), (2, 5, 8192 + 100, 3), (4, 4, 4096 + 9, 1)])
+def test_encode_values_plain_matches_pallas(rng, word, batch, elems, block_tiles):
+    """``encode_values_plain`` against the Pallas kernel in interpret
+    mode, at odd batch sizes (the kernel pads them with NaN rows)."""
+    x = _values(rng, batch, elems, 30.0 if word == 2 else 3e4)
+    eps = rng.uniform(1e-3, 1.0, batch)
+    eps[1] = 0.25                       # exact ties: x / eps = k + 0.5
+    x[1, :64] = ((np.arange(64) - 32) + 0.5).astype(np.float32) * 0.25
+    want = ref_fe.encode_values_fused(jnp.asarray(x), jnp.asarray(eps),
+                                      CHUNK[word], np.float32, SIGNED[word],
+                                      interpret=True, block_tiles=block_tiles)
+    got = pt_fe.encode_values_fused(_t(x), _t(eps), CHUNK[word],
+                                    torch.float32, TORCH_SIGNED[word])
+    u = UNSIGNED[word]
+    assert np.array_equal(got[0].numpy().view(u), np.asarray(want[0]))
+    assert np.array_equal(got[1].numpy().view(u), np.asarray(want[1]))
+    assert np.array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("bins_word,dtype", [(2, np.float32), (4, np.float32),
+                                             (2, np.float64), (8, np.float64)])
+def test_decode_no_subbins_matches_reference_plain_decode(rng, bins_word, dtype):
+    """The no-subbin decode against ``resident_decode_plain``, the
+    reference's plain-container chain."""
+    batch, tile_elems = 3, 2048 * 2 + 40
+    bm, pk, _, _ = _streams(rng, batch, tile_elems, bins_word, 2)
+    eps = np.array([1e-9, 3e-4, 2.0]) if dtype == np.float64 else \
+        np.array([1e-3, 2.5e-2, 0.7])
+    want = ref_device.resident_decode_plain(
+        jnp.asarray(bm), jnp.asarray(pk), jnp.asarray(eps), tile_elems,
+        np.dtype(dtype))
+    sb = SIGNED[bins_word]
+    got = pt_fd.decode_tiles_fused(_t(bm.view(sb)), _t(pk.view(sb)), None,
+                                   None, _t(eps), tile_elems,
+                                   torch.float32 if dtype == np.float32
+                                   else torch.float64)
+    assert got.numpy().dtype == np.dtype(dtype)
+    assert got.numpy().tobytes() == np.asarray(want).tobytes()
+
+
 def test_plain_path_counts_no_launches(rng):
     LAUNCHES.clear()
     sub_h, flags = _solve_inputs(rng, 2, (2, 2, 4))
     pt_ss.solve_tiles_blockwise(_t(sub_h), _t(flags.view(np.int32)))
     pt_fe.encode_ints_fused(_t(_ints(rng, 2, 64, 4)), 4096, "delta")
+    pt_fe.encode_values_fused(_t(_values(rng, 2, 64, 1.0)), _t(np.ones(2)),
+                              8192, torch.float32, torch.int16)
     assert sum(LAUNCHES.values()) == 0
 
 
 # ---------------------------------------------------------- on the card
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["solve", "encode", "decode"])
+@pytest.mark.parametrize("kernel", ["solve", "encode", "decode",
+                                    "encode_values", "decode_plain"])
 def test_cuda_kernel_matches_plain(rng, kernel):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card "
@@ -167,6 +224,21 @@ def test_cuda_kernel_matches_plain(rng, kernel):
         ints = _t(_ints(rng, 64, 16384, 2)).to(dev)
         plain = pt_fe.encode_ints_plain(ints, 8192, "delta")
         got = pt_fe.encode_ints_fused(ints, 8192, "delta")
+    elif kernel == "encode_values":
+        x = _t(_values(rng, 64, 16384, 30.0)).to(dev)
+        eps = torch.full((64,), 1e-2, dtype=torch.float64, device=dev)
+        plain = pt_fe.encode_values_plain(x, eps, 8192, torch.float32,
+                                          torch.int16)
+        got = pt_fe.encode_values_fused(x, eps, 8192, torch.float32,
+                                        torch.int16)
+    elif kernel == "decode_plain":
+        bm, pk, _, _ = _streams(rng, 8, 16384, 2, 2)
+        args = [_t(a.view(np.int16)).to(dev) for a in (bm, pk)]
+        eps = torch.full((8,), 1e-3, dtype=torch.float64, device=dev)
+        plain = (pt_fd.decode_tiles_plain(*args, None, None, eps, 16384,
+                                          torch.float32),)
+        got = (pt_fd.decode_tiles_fused(*args, None, None, eps, 16384,
+                                        torch.float32),)
     else:
         bm, pk, sbm, spk = _streams(rng, 8, 16384, 2, 2)
         args = [_t(a.view(np.int16)).to(dev) for a in (bm, pk, sbm, spk)]
@@ -174,4 +246,6 @@ def test_cuda_kernel_matches_plain(rng, kernel):
         plain = (pt_fd.decode_tiles_plain(*args, eps, 16384, torch.float32),)
         got = (pt_fd.decode_tiles_fused(*args, eps, 16384, torch.float32),)
     for a, b in zip(got, plain):
+        if a.dtype.is_floating_point:
+            a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b)
