@@ -39,6 +39,21 @@ Phases; any failure exits nonzero before the last line is printed:
    (``quantize_broadcast`` then ``decode_base`` on the untiled field),
    and ISABEL's plain container byte-equal to the CPU path's.  Times a
    warm compress and decompress (median of 3) and profiles one of each.
+2d. The whole-field (v1) compressor at full size: the same two fields
+   through ``repro_torch.core.compress(x, 1e-2, container_version=1)``
+   (``solver="auto"``: the band-solve kernel) and
+   ``repro_torch.core.decompress``, launches counted per path (f32
+   compress: the band solve, the BIT_4 transpose and the RZE bitmap
+   twice each, for the bins and the subbins; f64 compress: the band
+   solve alone, its 64-bit words run the torch codecs; f32 decompress:
+   the inverse transpose twice; no v1 path launches a kernel of the tiled
+   engine).  Checks the bound and the strict SoS order, that the v1
+   decode equals the tiled engine's decode of the same field bit for bit
+   (the parity claim) and the whole-field reconstruction, that the CPU
+   decodes the v1 container to the same bits, and that ISABEL's v1
+   sections, decoded and encoded again on the CPU with the plain
+   versions, are the same bytes.  Times a warm compress and decompress
+   (median of 3) and profiles one of each.
 2c. Region reads: on the order-preserving container of each field and
    on ISABEL's plain one, ``decompress_roi`` of a box that straddles
    tile boundaries on every axis, a box inside one tile and a one-cell
@@ -53,7 +68,9 @@ Phases; any failure exits nonzero before the last line is printed:
    (1,64,64) plan tiles.
 4. Kernels against their plain PyTorch versions on the card, on the very
    operands the runs above handed each kernel (recorded per signature):
-   bit equality required.  Times each kernel by its device time per
+   bit equality required (the band solve: equal subbins and equal global
+   sweep counts, on ISABEL's whole flags, on the first 32 X-rows of both
+   fields' flags and on a 128x4x4 chain that descends in X).  Times each kernel by its device time per
    launch (torch.profiler) and the plain version with CUDA events, and
    computes each kernel's bound from the operands.
 5. Determinism: the 24 snapshot cases of
@@ -62,7 +79,9 @@ Phases; any failure exits nonzero before the last line is printed:
    plain containers to ``src/repro_torch/data/plain_hashes.json`` (the
    reference's plain containers), each with the default and with the
    fused encode path (the compacted download; on the plain f32 cases the
-   fused value encode), and round-trip within their bound.
+   fused value encode), and round-trip within their bound; their v1
+   containers (the band-solve kernel on the card) must equal the CPU's
+   (``jacobi``) byte for byte.
 
 Prints one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor repro.
@@ -80,6 +99,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+T0 = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 bandwidth
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit peak, for integer ops
@@ -107,7 +127,21 @@ KERNELS = {
     "decode_tiles_fused_nosub": (
         "src/repro_torch/kernels/csrc/fused_decode.cu",
         "src/repro/kernels/fused_decode.py:72"),
+    "solve_blockwise": (
+        "src/repro_torch/kernels/csrc/subbin_sweep.cu",
+        "src/repro/kernels/subbin_sweep.py:212"),
+    "bitshuffle_u32": (
+        "src/repro_torch/kernels/csrc/bitshuffle.cu",
+        "src/repro/kernels/bitshuffle_kernel.py:64"),
+    "bitunshuffle_u32": (
+        "src/repro_torch/kernels/csrc/bitshuffle.cu",
+        "src/repro/kernels/bitshuffle_kernel.py:68"),
+    "rze_bitmap_u32": (
+        "src/repro_torch/kernels/csrc/rze.cu",
+        "src/repro/kernels/rze_kernel.py:34"),
 }
+TILED_KERNELS = ("solve_tiles_blockwise", "encode_ints_fused",
+                 "decode_tiles_fused", "encode_values_fused")
 
 
 def fail(msg: str) -> None:
@@ -116,7 +150,7 @@ def fail(msg: str) -> None:
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T0:.0f} s] {msg}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -131,12 +165,13 @@ class Recorder:
     the operands of the first calls per signature (the main path's real
     inputs) for the kernel-vs-plain phase."""
 
-    def __init__(self, device_mod):
+    def __init__(self, device_mod, v1_mods):
         self.calls: dict[tuple, list] = {}
-        for attr in ("solve_tiles_blockwise", "encode_ints_fused",
-                     "decode_tiles_fused", "encode_values_fused"):
-            real = getattr(device_mod, attr)
-            setattr(device_mod, attr, self._wrap(attr, real))
+        targets = [(device_mod, a) for a in TILED_KERNELS] + [
+            (v1_mods[0], "solve_blockwise"), (v1_mods[1], "bitshuffle_u32"),
+            (v1_mods[1], "bitunshuffle_u32"), (v1_mods[2], "rze_bitmap_u32")]
+        for mod, attr in targets:
+            setattr(mod, attr, self._wrap(attr, getattr(mod, attr)))
 
     def _wrap(self, name, real):
         def wrapped(*args):
@@ -171,13 +206,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> tuple[float, int] | None:
+def device_ms(fn, reps: int, kernel: str = "") -> tuple[float, int] | None:
     """Device time per launch of a wrapper that enqueues one kernel:
     the summed duration of the kernel events of ``reps`` calls in a
     torch.profiler trace over the number of events the trace holds (it
     may keep fewer than ``reps``), so host gaps between launches do not
-    count.  Returns (ms, events), or None when the trace holds no
-    kernel event."""
+    count.  With ``kernel``, only events whose name holds it count.
+    Returns (ms, events), or None when the trace holds no such event."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -190,7 +225,8 @@ def device_ms(fn, reps: int) -> tuple[float, int] | None:
         torch.cuda.synchronize()
     kern = [ev for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA
-            and not ev.key.startswith(("Activity Buffer", "Memcpy", "Memset"))]
+            and not ev.key.startswith(("Activity Buffer", "Memcpy", "Memset"))
+            and kernel in ev.key]
     n = sum(ev.count for ev in kern)
     if not n:
         return None
@@ -397,6 +433,100 @@ def plain_agreement(x, blob, y, eng, info: dict, cpu_compress: bool) -> None:
         + ("; container equals the CPU's" if cpu_compress else ""))
 
 
+# per (path, dtype): {kernel: launches required (None: at least one)};
+# every other kernel must not launch on a v1 path
+V1_KERNELS = {
+    ("compress", "float32"): {"solve_blockwise": None, "bitshuffle_u32": 2,
+                              "rze_bitmap_u32": 2},
+    ("compress", "float64"): {"solve_blockwise": None},
+    ("decompress", "float32"): {"bitunshuffle_u32": 2},
+    ("decompress", "float64"): {},
+}
+
+
+def v1_path(name, shape, dtype, core, kernels, topology, make_field,
+            launches: dict, y_tiled):
+    """Phase 2d: one full-size whole-field (v1) compress -> decompress
+    through ``repro_torch.core``; each path's launches counted alone and
+    checked against ``V1_KERNELS``; bound, strict SoS order, the decode
+    bit-equal to the tiled engine's decode ``y_tiled`` of the same field
+    (the parity claim) and to the CPU's decode of the container."""
+    import numpy as np
+    import torch
+
+    x = make_field(name, shape, np.dtype(dtype), seed=0)
+    field = f"{name}{'x'.join(map(str, shape))}/{dtype} v1"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    blob, stats = core.compress(x, EB, container_version=1, return_stats=True)
+    cold_c = time.perf_counter() - t0
+    launches[f"{field} compress"] = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    y = core.decompress(blob)
+    cold_d = time.perf_counter() - t0
+    launches[f"{field} decompress"] = dict(kernels.LAUNCHES)
+    for (path, dt), need in V1_KERNELS.items():
+        if dt != dtype:
+            continue
+        got = launches[f"{field} {path}"]
+        for k, n in need.items():
+            check(got.get(k, 0) > 0 if n is None else got.get(k, 0) == n,
+                  f"{k} launched {got.get(k, 0)} times on the {field} {path} "
+                  f"path (want {'>= 1' if n is None else n})")
+        for k in set(got) - set(need):
+            check(got[k] == 0, f"{k} launched on the {field} {path} path")
+    check(blob[4] == 1, f"{field}: not a v1 container")
+    check(y.shape == x.shape and y.dtype == x.dtype, f"{field}: bad output shape")
+    check(np.isfinite(y).all(), f"{field}: non-finite decode")
+    check(within_bound(x, y, EB), f"{field}: point-wise bound violated")
+    xt, yt = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    check(order_preserved(xt, yt, topology), f"{field}: local order broken")
+    del xt, yt
+    check(y.tobytes() == y_tiled.tobytes(),
+          f"{field}: the v1 decode differs from the tiled engine's decode")
+    t0 = time.perf_counter()
+    y_cpu = core.decompress(blob, device="cpu")
+    cpu_d = time.perf_counter() - t0
+    check(y_cpu.tobytes() == y.tobytes(),
+          f"{field}: the CPU decodes the v1 container to other values")
+    info = {"field": field, "raw_MB": x.nbytes / 1e6,
+            "container_bytes": len(blob), "ratio": x.nbytes / len(blob),
+            "bin_bytes": stats.bin_bytes, "subbin_bytes": stats.subbin_bytes,
+            "n_sweeps": stats.n_sweeps, "cold_compress_s": cold_c,
+            "cold_decompress_s": cold_d, "cpu_decompress_s": cpu_d}
+    log(f"full size {field}: decode equals the tiled engine's and the CPU's "
+        f"decode; {stats.n_sweeps} global band sweeps")
+    return (x, blob, y), info
+
+
+def v1_sections_reencode(blob, info: dict) -> None:
+    """The card's v1 sections, decoded and encoded again on the CPU with
+    the plain versions (BIT_4, RZE bitmap, compaction), are the same
+    bytes: the f32 kernels against their plain versions at full size,
+    without a CPU solve."""
+    import torch
+
+    from repro_torch.codecs import pipeline
+    from repro_torch.core import bitstream
+
+    t0 = time.perf_counter()
+    header, sections = bitstream.read_container(blob)
+    n = 1
+    for d in header.shape:
+        n *= d
+    for tag, dec, enc in ((bitstream.TAG_BINS, pipeline.decode_bins,
+                           pipeline.encode_bins),
+                          (bitstream.TAG_SUBBINS, pipeline.decode_subbins,
+                           pipeline.encode_subbins)):
+        ints = dec(sections[tag], n, header.shape, torch.int32, device="cpu")
+        check(enc(ints) == sections[tag],
+              f"{info['field']}: section {tag} encodes to other bytes on the CPU")
+    info["cpu_reencode_s"] = time.perf_counter() - t0
+    log(f"full size {info['field']}: bins and subbin sections re-encode "
+        "byte-identically on the CPU")
+
+
 # (tile-straddling box, box inside one (16, 16, 64) tile, one-cell slab)
 ROI_REGIONS = {
     "straddle": (slice(10, 40), slice(100, 170), slice(50, 200)),
@@ -499,11 +629,13 @@ def whole_field_reference(x, eb):
     return y, sweeps
 
 
-def full_size_agreement(x, blob, y, eng, info: dict, cpu_compress: bool) -> None:
+def full_size_agreement(x, blob, y, eng, info: dict, cpu_compress: bool,
+                        y_v1) -> None:
     """Hold one full-size card run against computations that share none
     of its tiling, halo rounds, batching or device: the whole-field
-    reconstruction on the card, the container decoded on the CPU and, if
-    ``cpu_compress``, the field compressed on the CPU."""
+    reconstruction on the card (which the v1 decode ``y_v1`` must equal
+    too), the container decoded on the CPU and, if ``cpu_compress``, the
+    field compressed on the CPU."""
     import numpy as np
     import torch
 
@@ -511,6 +643,9 @@ def full_size_agreement(x, blob, y, eng, info: dict, cpu_compress: bool) -> None
     y_ref, sweeps = whole_field_reference(x, EB)
     check(bits_equal(torch.from_numpy(y).cuda(), y_ref),
           f"{info['field']}: decoded values differ from the whole-field "
+          "reconstruction")
+    check(bits_equal(torch.from_numpy(y_v1).cuda(), y_ref),
+          f"{info['field']}: the v1 decode differs from the whole-field "
           "reconstruction")
     info.update(whole_field_sweeps=sweeps,
                 whole_field_s=time.perf_counter() - t0)
@@ -526,8 +661,9 @@ def full_size_agreement(x, blob, y, eng, info: dict, cpu_compress: bool) -> None
         info["cpu_compress_s"] = time.perf_counter() - t0
         check(blob_cpu == blob,
               f"{info['field']}: the CPU writes another container")
-    log(f"full size {info['field']}: decoded values equal the whole-field "
-        f"reconstruction ({sweeps} global sweeps) and the CPU decode"
+    log(f"full size {info['field']}: decoded values (tiled and v1) equal "
+        f"the whole-field reconstruction ({sweeps} global sweeps) and the "
+        "CPU decode"
         + ("; container equals the CPU's" if cpu_compress else ""))
 
 
@@ -614,13 +750,28 @@ def profile(name, shape, dtype, eng, make_field, **kw) -> dict:
 
 # ---------------------------------------------------------- kernel phase
 
-def bound_ms(name, args, out) -> tuple[float, str]:
+def bound_ms(name, args, out, relaxations: int = 0) -> tuple[float, str]:
     """Least time for this call's work: max(bytes / HBM rate, integer ops
     / peak rate), counting each input read once and each output written
-    once, and the work this run's data needs."""
+    once, and the work this run's data needs (for the band solve, the
+    ``relaxations`` of every band its plain version ran)."""
     import torch
 
-    if name == "solve_tiles_blockwise":
+    if name == "solve_blockwise":
+        flags = args[0]
+        sub = out[0]
+        nbytes = flags.nbytes + sub.nbytes
+        pop = sum(int(((flags >> k) & 1).sum()) for k in range(14))
+        # a set flag bit is an add and a max in every relaxation
+        ops = float(2 * pop * relaxations)
+    elif name in ("bitshuffle_u32", "bitunshuffle_u32"):
+        nbytes = args[0].nbytes + out.nbytes
+        ops = float(args[0].numel() * 32)  # one per bit
+    elif name == "rze_bitmap_u32":
+        bitmap, counts = out
+        nbytes = args[0].nbytes + bitmap.nbytes + counts.nbytes
+        ops = float(args[0].numel())  # one test per word
+    elif name == "solve_tiles_blockwise":
         sub_h, flags = args
         res, iters = out
         nbytes = sub_h.nbytes + flags.nbytes + res.nbytes + iters.nbytes
@@ -663,10 +814,49 @@ def bound_ms(name, args, out) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def band_cases(rec, topology, quantize) -> list:
+    """Operands of the band solve's kernel-vs-plain checks: ISABEL's whole
+    flags (first, the timed one), the first 32 X-rows of each field's
+    flags, and a 128x4x4 field descending in X inside one bin (one chain
+    across the whole X extent, as in the reference's test)."""
+    import torch
+
+    whole = [rec.calls[k][0] for k in rec.calls if k[0] == "solve_blockwise"]
+    check(len(whole) >= 2, "solve_blockwise: a full-size field was not recorded")
+    cases = [(f"whole {tuple(whole[0][0].shape)}", whole[0])]
+    # the flags of the sub-field x[:32]: its last row has no neighbour at
+    # x + 1 (a bit set there would read the clamped halo of the last band,
+    # which can close a cycle and never converge)
+    up = sum(1 << k for k, off in enumerate(topology.offsets(3)) if off[0] > 0)
+    for (flags,) in whole[:2]:
+        cut = flags[:32].clone()
+        cut[-1] &= ~up
+        cases.append((f"first 32 X-rows of {tuple(flags.shape)}", (cut,)))
+    x = -torch.cumsum(torch.full((128, 4, 4), 1e-9, dtype=torch.float64,
+                                 device=whole[0][0].device), dim=0)
+    bins = quantize.quantize(x, 1.0)
+    cases.append(("128x4x4 chain", (topology.order_flags(bins, x),)))
+    return cases
+
+
+def _same(a, b) -> tuple[bool, float]:
+    if hasattr(a, "shape"):
+        return bits_equal(a, b), max_abs_err(a, b)
+    return a == b, float(abs(a - b))  # a sweep count
+
+
 def kernel_phase(rec, launches: dict):
     import torch
 
-    from repro_torch.kernels import fused_decode, fused_encode, subbin_sweep
+    from repro_torch.core import quantize, topology
+    from repro_torch.kernels import (
+        bitshuffle_kernel,
+        fused_decode,
+        fused_encode,
+        ref,
+        rze_kernel,
+        subbin_sweep,
+    )
 
     impl = {
         "solve_tiles_blockwise": (subbin_sweep.solve_tiles_blockwise,
@@ -679,57 +869,92 @@ def kernel_phase(rec, launches: dict):
                                 fused_encode.encode_values_plain),
         "decode_tiles_fused_nosub": (fused_decode.decode_tiles_fused,
                                      fused_decode.decode_tiles_plain),
+        "solve_blockwise": (subbin_sweep.solve_blockwise,
+                            subbin_sweep.solve_blockwise_plain),
+        "bitshuffle_u32": (bitshuffle_kernel.bitshuffle_u32, ref.bitshuffle_ref),
+        "bitunshuffle_u32": (bitshuffle_kernel.bitunshuffle_u32,
+                             ref.bitunshuffle_ref),
+        "rze_bitmap_u32": (rze_kernel.rze_bitmap_u32, ref.rze_bitmap_ref),
     }
+    # the plain band solve's relaxations of all bands (= the kernel's
+    # launches that do work), for the band solve's operation count
+    relaxations = [0]
+    relax_bands = subbin_sweep._relax_bands
+
+    def counted_relax(*a):
+        relaxations[0] += 1
+        return relax_bands(*a)
+
+    subbin_sweep._relax_bands = counted_relax
     rows = []
     for name, (source, replaces) in KERNELS.items():
         kern, plain = impl[name]
         keys = [k for k in rec.calls if k[0] == name]
         check(keys, f"{name}: no recorded call")
-        checks, err = [], 0.0
-        for key in keys:
-            for args in rec.calls[key]:
-                got, want = kern(*args), plain(*args)
-                torch.cuda.synchronize()
-                pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-                same = all(bits_equal(a, b) for a, b in pairs)
-                e = max(max_abs_err(a, b) for a, b in pairs)
-                err = max(err, e)
-                checks.append({"signature": repr(key[1:]), "match": same,
-                               "max_abs_err": e})
-                check(same, f"{name}: kernel differs from plain on {key[1:]} "
-                            f"(max abs err {e})")
-        # time the first signature recorded: the main path's f32 field
-        key = keys[0]
-        args = rec.calls[key][0]
-        out = kern(*args)
-        traced = device_ms(lambda: kern(*args), 20)
-        if traced is None:  # the trace held no kernel event
-            ms, timed_by = cuda_ms(lambda: kern(*args), 20), "CUDA events"
+        if name == "solve_blockwise":
+            cases = band_cases(rec, topology, quantize)
         else:
-            ms, timed_by = traced[0], f"profiler device time, {traced[1]} launches"
-        events_ms = cuda_ms(lambda: kern(*args), 20)
+            cases = [(repr(k[1:]), args) for k in keys for args in rec.calls[k]]
+        checks, err, work = [], 0.0, {}
+        for label, args in cases:
+            relaxations[0] = 0
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            work[label] = relaxations[0]
+            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+            same = all(_same(a, b)[0] for a, b in pairs)
+            e = max(_same(a, b)[1] for a, b in pairs)
+            err = max(err, e)
+            checks.append({"signature": label, "match": same, "max_abs_err": e,
+                           **({"sweeps": got[1], "relaxations": work[label]}
+                              if name == "solve_blockwise" else {})})
+            check(same, f"{name}: kernel differs from plain on {label} "
+                        f"(max abs err {e})")
+        # time the first operands: the main path's f32 field
+        label, args = cases[0]
+        out = kern(*args)
+        extra = {}
+        if name == "solve_blockwise":
+            # one call is the whole solve: many launches and host reads
+            ms, timed_by = cuda_ms(lambda: kern(*args), 3), "CUDA events, whole solve"
+            events_ms = ms
+            traced = device_ms(lambda: kern(*args), 1, "band_sweep")
+            extra = {"relaxations": work[label], "sweeps": out[1],
+                     "band_kernel_ms_per_launch": traced and traced[0],
+                     "band_launches_per_solve": traced and traced[1]}
+        else:
+            traced = device_ms(lambda: kern(*args), 20)
+            if traced is None:  # the trace held no kernel event
+                ms, timed_by = cuda_ms(lambda: kern(*args), 20), "CUDA events"
+            else:
+                ms, timed_by = traced[0], f"profiler device time, {traced[1]} launches"
+            events_ms = cuda_ms(lambda: kern(*args), 20)
         plain_ms = cuda_ms(lambda: plain(*args), 1)
-        b_ms, b_by = bound_ms(name, args, out)
+        library_ms = None
+        if name == "rze_bitmap_u32":  # the counts alone, not the bitmap
+            library_ms = cuda_ms(lambda: torch.count_nonzero(args[0], dim=1), 20)
+            extra["library_call"] = "torch.count_nonzero(words, dim=1): counts only"
+        b_ms, b_by = bound_ms(name, args, out, work[label])
         by_path = {p: c[name] for p, c in launches.items() if c.get(name)}
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "ms_timed_by": timed_by, "events_ms": events_ms,
-            "match": True, "timed_signature": repr(key[1:]), "checks": checks,
+            "match": True, "timed_signature": label, "checks": checks, **extra,
         })
         log(f"kernel {name}: {len(checks)} checks bit-equal, {ms:.4f} ms "
-            f"({timed_by}; {events_ms:.4f} ms by CUDA events around 20 "
-            f"calls), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}, "
-            f"on {key[1:]}; launches {by_path}")
+            f"({timed_by}; {events_ms:.4f} ms by CUDA events), plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}, library "
+            f"{library_ms}, on {label}; launches {by_path}"
+            + (f"; {extra}" if extra else ""))
+    subbin_sweep._relax_bands = relax_bands
     return rows
 
 
 # ----------------------------------------------------------------- main
-
-T0 = time.perf_counter()
 
 
 def main() -> None:
@@ -743,12 +968,14 @@ def main() -> None:
 
     import numpy as np
 
+    from repro_torch import core
     from repro_torch import engine as eng
     from repro_torch import kernels
     from repro_torch.core import bitstream, topology
     from repro_torch.data.fields import FIELD_GENERATORS, make_scientific_field
     from repro_torch.engine import device as device_mod
     from repro_torch.engine import executor
+    from repro_torch.kernels import bitshuffle_kernel, rze_kernel, subbin_sweep
 
     check(not any(m == "jax" or m.startswith(("jax.", "repro."))
                   or m == "repro" for m in sys.modules), "jax/repro imported")
@@ -762,7 +989,7 @@ def main() -> None:
     build_s = kernels.build()
     log(f"kernels built in {build_s:.1f} s")
 
-    rec = Recorder(device_mod)
+    rec = Recorder(device_mod, (subbin_sweep, bitshuffle_kernel, rze_kernel))
     field = functools.lru_cache(maxsize=None)(make_scientific_field)
 
     # ---- 2. main path at full size, each path's launches counted alone
@@ -782,6 +1009,20 @@ def main() -> None:
             f"container (word-level form {r['word_form_d2h_ratio']:.4f}x, "
             f"staged {r['staged_d2h_ratio']:.4f}x); card {card}")
 
+    # ---- 2d. the whole-field (v1) compressor at full size, its decode
+    # held to the tiled engine's decode of the same field
+    v1_runs = [v1_path(*cell, core, kernels, topology, field, launches,
+                       arrays[2])
+               for cell, (arrays, _) in zip((ISABEL, MIRANDA), runs)]
+    v1_sections_reencode(v1_runs[0][0][1], v1_runs[0][1])
+    for arrays, info in v1_runs:
+        warm_timing(*arrays, core, info, container_version=1)
+        results.append(info)
+        log(f"full size {info['field']}: ratio {info['ratio']:.3f}, compress "
+            f"{info['compress_MB_s']:.1f} MB/s, decompress "
+            f"{info['decompress_MB_s']:.1f} MB/s (warm medians of 3), "
+            f"{info['n_sweeps']} global band sweeps; card {card}")
+
     # ---- 2b. plain path at full size
     plain_runs = [plain_path(*cell, eng, executor, kernels, field, launches)
                   for cell in (ISABEL, MIRANDA)]
@@ -796,8 +1037,10 @@ def main() -> None:
             f"{info['staged_d2h_ratio']:.4f}x); card {card}")
     log("launches by path: " + json.dumps(launches))
     log(json.dumps({"full_size": results, "launches_by_path": launches}))
-    profiles = {f"{cell[0]}{kind}": profile(*cell, eng, field, **kw)
-                for kind, kw in (("", {}), (" plain", {"preserve_order": False}))
+    profiles = {f"{cell[0]}{kind}": profile(*cell, api, field, **kw)
+                for kind, api, kw in (("", eng, {}),
+                                      (" plain", eng, {"preserve_order": False}),
+                                      (" v1", core, {"container_version": 1}))
                 for cell in (ISABEL, MIRANDA)}
     for cell, prof in profiles.items():
         for what, p in prof.items():
@@ -815,8 +1058,9 @@ def main() -> None:
     # independent checks of the main-path runs; only the f32 field is also
     # compressed on the CPU, whose plain sweeps take the f64 field's 45
     # halo rounds far more slowly than the card
-    for (arrays, info), cpu_compress in zip(runs, (True, False)):
-        full_size_agreement(*arrays, eng, info, cpu_compress)
+    for (arrays, info), cpu_compress, (v1_arrays, _) in zip(
+            runs, (True, False), v1_runs):
+        full_size_agreement(*arrays, eng, info, cpu_compress, v1_arrays[2])
     for (arrays, info), cpu_compress in zip(plain_runs, (True, False)):
         plain_agreement(*arrays, eng, info, cpu_compress)
 
@@ -824,7 +1068,7 @@ def main() -> None:
     roi = roi_phase({runs[0][1]["field"]: runs[0][0][1],
                      plain_runs[0][1]["field"]: plain_runs[0][0][1],
                      runs[1][1]["field"]: runs[1][0][1]}, eng, executor)
-    del runs, plain_runs
+    del runs, plain_runs, v1_runs
 
     # ---- 3. width and tile-shape runs (same entry points, not counted):
     # the full-size fields again at bounds that need int32 / int64 bins
@@ -879,10 +1123,19 @@ def main() -> None:
                           f"{case} {kw}: container hash differs from the manifest")
                     check(within_bound(x, eng.decompress(blob), EB),
                           f"{case} {kw}: round trip exceeds the bound")
+                v1 = core.compress(x, EB, container_version=1)
+                check(v1 == core.compress(x, EB, container_version=1,
+                                          device="cpu"),
+                      f"{case}: the card's v1 container differs from the CPU's")
+                check(core.decompress(v1).tobytes()
+                      == eng.decompress(eng.compress(x, EB)).tobytes(),
+                      f"{case}: the v1 decode differs from the tiled decode")
                 n += 1
     check(n == 24 and len(plain_hashes) == 24, "manifest cases missing")
     log(f"determinism: {n}/24 manifest hashes and {n}/24 plain hashes "
-        "reproduced on the card, each with the default and the fused encode path")
+        "reproduced on the card, each with the default and the fused encode "
+        f"path; {n}/24 v1 containers equal the CPU's and decode to the tiled "
+        "decode")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

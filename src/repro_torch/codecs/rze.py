@@ -1,9 +1,11 @@
 """RZE_w — repeated-zero elimination (port of ``repro.codecs.rze``).
 
 Per chunk: an MSB-first bitmap marks nonzero words.  The device half
-produces the bitmap and the per-chunk counts (:func:`rze_bitmap`) and
-expands front-packed words back (:func:`rze_decode`); the host half
-(``np_*``) serves the container serializer.
+produces the bitmap and the per-chunk counts (:func:`rze_bitmap`),
+front-packs the nonzero words (:func:`rze_compact`; both together are
+:func:`rze_encode`) and expands front-packed words back
+(:func:`rze_decode`); the host half (``np_*``) serves the container
+serializer.
 """
 from __future__ import annotations
 
@@ -25,6 +27,30 @@ def rze_bitmap(words: torch.Tensor):
     grouped = nz.to(dt).reshape(n_chunks, length // w, w)
     bitmap = torch.sum(grouped << shifts, dim=-1).to(dt)
     return bitmap, counts
+
+
+def rze_compact(words: torch.Tensor) -> torch.Tensor:
+    """(C, L) words -> (C, L) with each chunk's nonzero words front-packed
+    in order and zeros after them.
+
+    Stable compaction without a sort, as the reference does it: a nonzero
+    word's destination is its inclusive prefix count - 1; zero words go
+    (as zeros) to the unique slots past the count, so one scatter with
+    unique indices fills every slot.
+    """
+    nz = words != 0
+    cum_nz = torch.cumsum(nz, dim=1, dtype=torch.int32)
+    cum_z = torch.cumsum(~nz, dim=1, dtype=torch.int32)
+    dest = torch.where(nz, cum_nz - 1, cum_nz[:, -1:] + cum_z - 1)
+    return torch.zeros_like(words).scatter_(1, dest.long(), words)
+
+
+def rze_encode(words: torch.Tensor):
+    """(C, L) W-bit words -> (bitmap (C, L//W), packed (C, L), counts (C,)
+    int32): ``packed[c, :counts[c]]`` are chunk c's nonzero words in
+    order."""
+    bitmap, counts = rze_bitmap(words)
+    return bitmap, rze_compact(words), counts
 
 
 def rze_decode(bitmap: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:

@@ -45,3 +45,17 @@ def zigzag_encode(v: torch.Tensor) -> torch.Tensor:
 def zigzag_decode(z: torch.Tensor) -> torch.Tensor:
     """Unsigned zigzag code -> signed."""
     return lsr(z, 1) ^ (torch.zeros_like(z) - (z & 1))
+
+
+def chunk(x: torch.Tensor, chunk_len: int) -> tuple[torch.Tensor, int]:
+    """Flatten + zero-pad to (n_chunks, chunk_len). Returns (chunks, n_valid)."""
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    n_chunks = -(-n // chunk_len)
+    pad = torch.zeros(n_chunks * chunk_len - n, dtype=flat.dtype,
+                      device=flat.device)
+    return torch.cat([flat, pad]).reshape(n_chunks, chunk_len), n
+
+
+def unchunk(chunks: torch.Tensor, n_valid: int, shape) -> torch.Tensor:
+    return chunks.reshape(-1)[:n_valid].reshape(shape)

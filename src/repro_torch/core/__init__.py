@@ -1,2 +1,6 @@
 """Numerical core of the port: float bit maps, quantization, topology,
-the container format and the non-finite sidecar."""
+the subbin fixed point, the container format, the non-finite sidecar and
+the single-field API (``compress``, ``decompress``)."""
+from .lopc import CompressStats, compress, compression_ratio, decompress
+
+__all__ = ["compress", "decompress", "compression_ratio", "CompressStats"]

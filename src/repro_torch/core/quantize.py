@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .floatbits import float_to_ordered, ordered_to_float
+from .floatbits import float_to_ordered, int_dtype_for, ordered_to_float
 
 # Relative shrink applied to the user's bound (see the reference).
 EPS_SHRINK = 1.0 - 2.0**-20
@@ -81,6 +81,22 @@ def quantize_broadcast(x: torch.Tensor, eps_b, dtype: torch.dtype) -> torch.Tens
         too_low = x >= decode_base(b + 1, eps_b, dtype)
         b = b - too_high.to(bdt) + too_low.to(bdt)
     return b
+
+
+def quantize(x: torch.Tensor, eps_abs: float) -> torch.Tensor:
+    """Whole-field bins of width ``effective_eps(eps_abs)``:
+    base(b) <= x < base(b+1) exactly, hence any decode inside the bin is
+    within +-eps_abs of x."""
+    return quantize_broadcast(x, effective_eps(eps_abs), x.dtype)
+
+
+def dequantize(bins: torch.Tensor, subbins: torch.Tensor, eps_abs: float,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Reconstruct: subbin k -> the k-th lowest representable float in
+    the bin (``decode_base`` plus the subbin in ordered-int space)."""
+    base = decode_base(bins, effective_eps(eps_abs), dtype)
+    m = float_to_ordered(base) + subbins.to(int_dtype_for(dtype))
+    return ordered_to_float(m, dtype)
 
 
 def max_abs_bin(dtype) -> float:

@@ -16,12 +16,11 @@ brings them.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 import torch
 
 from ..core import bitstream
+from ..core.lopc import CompressStats
 from ..core.nonfinite import decode_nonfinite, encode_nonfinite
 from ..core.quantize import abs_bound_from_mode, bin_dtype_for, check_bin_range, effective_eps
 from . import device as _device
@@ -43,21 +42,6 @@ FLAG_HAS_NONFINITE = bitstream.FLAG_HAS_NONFINITE
 ADAPTIVE_EB_MODES = ("off", "tda")
 
 DEFAULT_PLAN = CompressionPlan()
-
-
-@dataclass
-class CompressStats:
-    raw_bytes: int
-    total_bytes: int
-    bin_bytes: int
-    subbin_bytes: int
-    header_bytes: int
-    n_sweeps: int
-    eps_abs: float
-
-    @property
-    def ratio(self) -> float:
-        return self.raw_bytes / self.total_bytes
 
 
 def resolve_device(device) -> torch.device:

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``.  Libraries are built at first use,
 all sources in parallel, into ``build/kernels/`` at the root of the
-checkout, and named by a hash of their source and flags so an edited
-source is rebuilt and an unchanged one is reused.
+checkout, and named by a hash of their source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source is rebuilt and an unchanged
+one is reused.
 
 ``LAUNCHES`` counts kernel launches by kernel name; a wrapper adds one
 exactly where it launches its kernel, never on the plain path.
@@ -26,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("subbin_sweep", "fused_encode", "fused_decode")
+SOURCES = ("subbin_sweep", "fused_encode", "fused_decode", "bitshuffle", "rze")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -53,7 +54,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's build
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -29,8 +29,9 @@
 // rate still stays below its bytes time.  One CTA owns one chunk row.
 // Warps walk groups of 32 words (64 for W = 64); `__ballot_sync` over one
 // bit of every lane's word yields 32 bits of one plane in one
-// instruction (`__brev` turns lane order into MSB-first order; W = 16
-// splits a ballot into two plane words, W = 64 joins two).  The shuffled
+// instruction (`ballot_planes` of ballot_transpose.cuh, shared with the
+// BIT_4 kernel; W = 16 splits a ballot into two plane words, W = 64 joins
+// two).  The shuffled
 // chunk is staged in shared memory so the bitmap ballots and the store to
 // device memory are coalesced; the value encode stages its chunk's bins
 // in a second shared buffer, so each cell is quantized once and the
@@ -40,6 +41,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ballot_transpose.cuh"
 
 namespace {
 
@@ -81,32 +84,21 @@ __device__ __forceinline__ void shuffle_group(typename Word<W>::U* sh,
   constexpr int L = 131072 / W;  // words per 16 KiB chunk
   constexpr int P = L / W;       // words per plane
   if constexpr (W == 64) {
-    uint32_t k0a = 0, k0b = 0, k1a = 0, k1b = 0;
-#pragma unroll
-    for (int p = 0; p < 64; ++p) {
-      const uint32_t ba = __ballot_sync(kFull, (unsigned)((u0 >> (63 - p)) & 1u));
-      const uint32_t bb = __ballot_sync(kFull, (unsigned)((u1 >> (63 - p)) & 1u));
-      if (lane == (p & 31)) {
-        if (p < 32) { k0a = ba; k0b = bb; } else { k1a = ba; k1b = bb; }
-      }
-    }
-    sh[lane * P + g] = ((U)__brev(k0a) << 32) | (U)__brev(k0b);
-    sh[(lane + 32) * P + g] = ((U)__brev(k1a) << 32) | (U)__brev(k1b);
-  } else {
-    uint32_t keep = 0;
-#pragma unroll
-    for (int p = 0; p < W; ++p) {
-      const uint32_t b = __ballot_sync(kFull, (unsigned)((u0 >> (W - 1 - p)) & 1u));
-      if (lane == p) keep = b;
-    }
-    if (lane < W) {
-      const uint32_t r = __brev(keep);
-      if constexpr (W == 32) {
-        sh[lane * P + g] = (U)r;
-      } else {  // W == 16: a 32-word group fills two plane words
-        sh[lane * P + 2 * g] = (U)(r >> 16);
-        sh[lane * P + 2 * g + 1] = (U)(r & 0xffffu);
-      }
+    // planes 0-31 from the high halves, 32-63 from the low halves; the
+    // lane's word (u0) fills a plane word's high half, u1 its low half
+    const uint32_t a0 = ballot_planes<32>((uint32_t)(u0 >> 32), lane);
+    const uint32_t b0 = ballot_planes<32>((uint32_t)(u1 >> 32), lane);
+    const uint32_t a1 = ballot_planes<32>((uint32_t)u0, lane);
+    const uint32_t b1 = ballot_planes<32>((uint32_t)u1, lane);
+    sh[lane * P + g] = ((U)a0 << 32) | (U)b0;
+    sh[(lane + 32) * P + g] = ((U)a1 << 32) | (U)b1;
+  } else if constexpr (W == 32) {
+    sh[lane * P + g] = (U)ballot_planes<32>((uint32_t)u0, lane);
+  } else {  // W == 16: a 32-word group fills two plane words
+    const uint32_t r = ballot_planes<16>((uint32_t)u0, lane);
+    if (lane < 16) {
+      sh[lane * P + 2 * g] = (U)(r >> 16);
+      sh[lane * P + 2 * g + 1] = (U)(r & 0xffffu);
     }
   }
 }

@@ -1,7 +1,13 @@
-// Tile-local subbin fixed-point solve for Hopper (sm_90a).
+// Subbin fixed-point solves for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `solve_tiles_blockwise` of
-// src/repro/kernels/subbin_sweep.py (body `_make_tile_kernel`).
+// 1. `lopc_solve_tiles` replaces the Pallas TPU kernel
+//    `solve_tiles_blockwise` of src/repro/kernels/subbin_sweep.py (body
+//    `_make_tile_kernel`): the tiled engine's solve.
+// 2. `lopc_band_sweep` replaces the Pallas TPU kernel `solve_blockwise`
+//    of the same file (`_one_global_sweep`, `_sweep_kernel`,
+//    `_relax_band`): the whole-field solve of the v1 compressor.
+//
+// ---- 1. Tile-local solve
 //
 // What it computes: for each haloed int32 tile (halo held fixed), repeat
 //     cur = max(cur, max_k[flag bit k](nbr_k + tie_k))
@@ -24,6 +30,29 @@
 // sweep; that register stage is the second buffer of the Jacobi scheme.
 // `__syncthreads_or` is the "did anything move" test.  What remains is
 // shared-memory latency and the per-sweep barriers.
+//
+// ---- 2. Whole-field band sweep
+//
+// What it computes: the field's X axis is cut into 8-row bands.  One
+// global sweep relaxes every band to its own least fixed point with its
+// halo rows (the neighbour bands' boundary rows; the end bands read a
+// clamped neighbour) frozen at the sweep-start state, and zero fill in Y
+// and Z.  The TPU holds a (8+2, Y, Z) band in VMEM and iterates it there;
+// at ISABEL's 500x500 plane that band is 8 MB, far beyond the 227 KB of
+// shared memory an H100 block can use, so the band lives in device
+// memory.  One launch relaxes every cell once: neighbours in the cell's
+// own band come from the current state (`cur`, written to `nxt`, the two
+// ping-ponged by the host), neighbours in another band (or past either
+// end of X) from the sweep-start snapshot `snap`.  Launches repeat until
+// one changes nothing: that is every band's fixed point, which is unique,
+// so the result and the global sweep count are the reference's.  Each
+// launch ORs its own change flag (`changed[slot]`, one warp vote per
+// warp); a launch whose predecessor's flag is clear returns at once, so
+// the host can queue several launches between two reads of the flags.
+//
+// What bounds it on this card: bytes.  A launch reads the flags and the
+// state once per cell (neighbours mostly hit L1/L2) and writes the state
+// once; the host repeats it as many times as the band relaxation needs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,6 +171,53 @@ cudaError_t launch(const int32_t* sub_h, const int32_t* flags, int32_t* out,
   return cudaGetLastError();
 }
 
+// ---- 2. whole-field band sweep
+
+constexpr int kBand = 8;
+constexpr int kBandThreads = 256;
+
+__global__ void __launch_bounds__(kBandThreads)
+band_sweep_kernel(const int32_t* __restrict__ flags, const int32_t* cur,
+                  const int32_t* snap, int32_t* nxt, int32_t* changed,
+                  const int32_t* prev, long long n, int xp, int y, int z) {
+  if (prev != nullptr && *prev == 0) return;  // the bands are converged
+  const long long i = (long long)blockIdx.x * kBandThreads + threadIdx.x;
+  int moved = 0;
+  if (i < n) {
+    uint32_t f = (uint32_t)flags[i] & kFlagMask;
+    const int32_t c = cur[i];
+    int32_t m = c;
+    if (f) {
+      const long long plane = (long long)y * z;
+      const int a = (int)(i / plane);
+      const int r = (int)(i - (long long)a * plane);
+      const int b = r / z;
+      const int cz = r - b * z;
+      const int band = a / kBand;
+      while (f) {
+        const int k = __ffs(f) - 1;
+        f &= f - 1;
+        int na = a + kOff[k][0];
+        const int nb = b + kOff[k][1];
+        const int nc = cz + kOff[k][2];
+        int32_t v = 0;  // zero fill in Y and Z
+        if (nb >= 0 && nb < y && nc >= 0 && nc < z) {
+          if (na < 0) na = kBand - 1;        // band 0's clamped neighbour
+          else if (na >= xp) na = xp - kBand;  // the last band's
+          const bool halo = na / kBand != band || a + kOff[k][0] != na;
+          const long long j = ((long long)na * y + nb) * z + nc;
+          v = halo ? snap[j] : cur[j];
+        }
+        m = max(m, v + (k < 7 ? 1 : 0));
+      }
+      moved = m != c;
+    }
+    nxt[i] = m;
+  }
+  if (__any_sync(0xffffffffu, moved) && (threadIdx.x & 31) == 0)
+    changed[0] = 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -182,6 +258,29 @@ int lopc_solve_tiles(const void* sub_h, const void* flags, void* out,
   else if (cpt <= 64) err = launch<64>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
   else err = cudaErrorInvalidValue;
   return (int)err;
+}
+
+// flags (xp, y, z) uint32 bits in int32 (xp a multiple of 8), cur, snap,
+// nxt (xp, y, z) int32, changed (>= slot + 1,) int32: one relaxation of
+// every cell, the change flag of launch `slot` in changed[slot]; a launch
+// with slot > 0 returns at once if changed[slot - 1] is clear.
+int lopc_band_sweep(const void* flags, const void* cur, const void* snap,
+                    void* nxt, void* changed, long long slot, long long xp,
+                    long long y, long long z, void* stream) {
+  const long long n = xp * y * z;
+  if (n == 0) return 0;
+  if (xp % kBand || slot < 0 || xp > 0x7fffffffLL || y > 0x7fffffffLL ||
+      z > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  auto* ch = static_cast<int32_t*>(changed);
+  const long long blocks = (n + kBandThreads - 1) / kBandThreads;
+  band_sweep_kernel<<<(unsigned)blocks, kBandThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(flags), static_cast<const int32_t*>(cur),
+      static_cast<const int32_t*>(snap), static_cast<int32_t*>(nxt),
+      ch + slot, slot > 0 ? ch + slot - 1 : nullptr, n, (int)xp, (int)y,
+      (int)z);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -300,6 +300,18 @@ def test_arguments_outside_the_slice_name_their_roadmap_row():
     chain = (DATA / "fixture_v3.lopc").read_bytes()
     with pytest.raises(NotImplementedError, match="row 10"):
         engine.decompress_roi(chain, (slice(0, 2),) * 3, device="cpu")
+    from repro_torch import core
+    from repro_torch.kernels import ops
+
+    with pytest.raises(NotImplementedError, match="row 10"):
+        core.decompress(chain, device="cpu")
+    with pytest.raises(NotImplementedError, match="items 6-7"):
+        ops.quantize_ff32(torch.zeros(4), 1e-2)
+    with pytest.raises(NotImplementedError, match="items 6-7"):
+        ops.dequantize_ff32(torch.zeros(4, dtype=torch.int32),
+                            torch.zeros(4, dtype=torch.int32), 1e-2)
+    with pytest.raises(NotImplementedError, match="items 6-7"):
+        ops.ff32_domain_ok(np.zeros(4, np.float32), 1e-2)
     # the reference's own argument error comes before the row-9 guard
     with pytest.raises(ValueError, match="requires preserve_order=True"):
         engine.compress(x, 1e-2, preserve_order=False, adaptive_eb="tda",
