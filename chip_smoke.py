@@ -62,15 +62,45 @@ Phases; any failure exits nonzero before the last line is printed:
    ``decode_tiles_many`` over two containers must equal their
    single-container reads.  Times the boundary box against the full
    decompress.
+2e. Topology-adaptive error bounds at full size: the same two fields
+   through ``compress(..., adaptive_eb="tda")`` and ``decompress``,
+   launches counted per path (ISABEL: the tile solve's 32-bit lane;
+   Miranda: its 64-bit lane; both the integer encode; decompress: the
+   decode kernel).  Checks strict SoS order (and the port's
+   ``local_order_violations == 0``), ``critical_point_errors == (0, 0,
+   0)``, every cell within its own tile's rung bound, logs the rung
+   histogram and the ratio against the uniform container.  At eb 1e-2
+   every tile of both fields takes the tightest rung, so Miranda runs a
+   third time at eb 1e-3, where the ladder mixes rungs: at least two
+   rungs must be taken and ``tighten_ladder`` must raise at least one
+   (the mechanism itself, with cross-eps tile boundaries in the ordered
+   lane).  For ISABEL and for the mixed run, a one-tile-deep cut (16 X
+   rows) compressed adaptively on the card and on the CPU must give the
+   same bytes, and the full container must decode on the CPU to the
+   card's bits.  Times a warm compress and decompress (median of 3) and
+   profiles one of each (ISABEL and Miranda at eb 1e-2).
+2f. The FF32 contract at full size: ISABEL at eps =
+   ``effective_eps(1e-2 * range)``: ``ff32_domain_ok``, then
+   ``kernels.ops.quantize_ff32`` -> ``core.subbin.solve_subbins`` (the
+   band-solve kernel) -> ``dequantize_ff32``, exactly one launch each of
+   the FF32 quantize and dequantize kernels; checks the bound, the local
+   order and the critical points.
 3. Width runs: the same entry points on full-size fields at bounds that
    reach the int32 and int64 bins widths (ISABEL's also on the plain
-   path), and on 1-D and 2-D fields whose tiles are the (1,1,4096) and
-   (1,64,64) plan tiles.
+   path), on 1-D and 2-D fields whose tiles are the (1,1,4096) and
+   (1,64,64) plan tiles, an adaptive 1-D f64 field (the tile solve's
+   64-bit lane on the 1-D tile, whose haloed state exceeds shared
+   memory), and an adaptive f64 field whose subbin sections are 8 bytes
+   wide (the encode and the decode kernel at w=64; its container must
+   equal the CPU's).
 4. Kernels against their plain PyTorch versions on the card, on the very
    operands the runs above handed each kernel (recorded per signature):
    bit equality required (the band solve: equal subbins and equal global
    sweep counts, on ISABEL's whole flags, on the first 32 X-rows of both
-   fields' flags and on a 128x4x4 chain that descends in X).  Times each kernel by its device time per
+   fields' flags and on a 128x4x4 chain that descends in X; the tile
+   solve's ordered-space lanes on ISABEL-adaptive's batches (32-bit),
+   Miranda-adaptive's and the 1-D f64 field's (64-bit); the FF32 pair at
+   ISABEL's size).  Times each kernel by its device time per
    launch (torch.profiler) and the plain version with CUDA events, and
    computes each kernel's bound from the operands.
 5. Determinism: the 24 snapshot cases of
@@ -81,10 +111,12 @@ Phases; any failure exits nonzero before the last line is printed:
    fused encode path (the compacted download; on the plain f32 cases the
    fused value encode), and round-trip within their bound; their v1
    containers (the band-solve kernel on the card) must equal the CPU's
-   (``jacobi``) byte for byte.
+   (``jacobi``) byte for byte; the 8 ``adaptive/*`` cases, compressed
+   under every solver value, must all hash to the manifest.
 
-Prints one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Imports neither jax nor repro.
+Logs the seconds of each phase.  Prints one ``{"kernels": [...]}``
+line, the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+Imports neither jax nor repro.
 """
 from __future__ import annotations
 
@@ -104,13 +136,25 @@ T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 bandwidth
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit peak, for integer ops
 F64_OPS_PER_S = 34e12         # H100 SXM non-tensor f64 peak
+F32_OPS_PER_S = 67e12         # H100 SXM non-tensor f32 peak
 D2H_CEILING = 1.1             # compress download / container bytes
 EB = 1e-2
+# Miranda's adaptive run at this bound mixes rungs (at EB every tile of
+# both fields takes the tightest) and makes tighten_ladder raise rungs
+EB_MIXED = 1e-3
 ISABEL = ("turbulence", (100, 500, 500), "float32")
 MIRANDA = ("gaussians", (256, 384, 384), "float64")
 
 KERNELS = {
     "solve_tiles_blockwise": (
+        "src/repro_torch/kernels/csrc/subbin_sweep.cu",
+        "src/repro/kernels/subbin_sweep.py:148"),
+    # the same kernel on the adaptive path's ordered-space state: f32
+    # fields run its int32 instantiation, f64 fields its int64 one
+    "solve_tiles_blockwise_ordered32": (
+        "src/repro_torch/kernels/csrc/subbin_sweep.cu",
+        "src/repro/kernels/subbin_sweep.py:148"),
+    "solve_tiles_blockwise_64": (
         "src/repro_torch/kernels/csrc/subbin_sweep.cu",
         "src/repro/kernels/subbin_sweep.py:148"),
     "encode_ints_fused": (
@@ -139,7 +183,24 @@ KERNELS = {
     "rze_bitmap_u32": (
         "src/repro_torch/kernels/csrc/rze.cu",
         "src/repro/kernels/rze_kernel.py:34"),
+    "quantize_ff32": (
+        "src/repro_torch/kernels/csrc/ff32.cu",
+        "src/repro/kernels/quantize_kernel.py:33"),
+    "dequantize_ff32": (
+        "src/repro_torch/kernels/csrc/ff32.cu",
+        "src/repro/kernels/fused_decode.py:140"),
 }
+# the LAUNCHES counter of a row, where it is not the row's name, and
+# which paths' counts belong to the row
+COUNTER = {"solve_tiles_blockwise_ordered32": "solve_tiles_blockwise"}
+
+
+def row_paths(name: str, path: str) -> bool:
+    if name == "solve_tiles_blockwise":
+        return "adaptive" not in path
+    if name == "solve_tiles_blockwise_ordered32":
+        return "adaptive" in path
+    return True
 TILED_KERNELS = ("solve_tiles_blockwise", "encode_ints_fused",
                  "decode_tiles_fused", "encode_values_fused")
 
@@ -165,20 +226,31 @@ class Recorder:
     the operands of the first calls per signature (the main path's real
     inputs) for the kernel-vs-plain phase."""
 
-    def __init__(self, device_mod, v1_mods):
+    def __init__(self, device_mod, v1_mods, ff32_mods):
         self.calls: dict[tuple, list] = {}
+        self.real: dict[str, object] = {}
+        # set while an adaptive path runs: its int32 tile solves are the
+        # ordered-space lane, recorded apart from the subbin lane's
+        self.ordered = False
         targets = [(device_mod, a) for a in TILED_KERNELS] + [
             (v1_mods[0], "solve_blockwise"), (v1_mods[1], "bitshuffle_u32"),
-            (v1_mods[1], "bitunshuffle_u32"), (v1_mods[2], "rze_bitmap_u32")]
+            (v1_mods[1], "bitunshuffle_u32"), (v1_mods[2], "rze_bitmap_u32"),
+            (ff32_mods[0], "quantize_ff32"), (ff32_mods[1], "dequantize_ff32")]
         for mod, attr in targets:
+            self.real[attr] = getattr(mod, attr)
             setattr(mod, attr, self._wrap(attr, getattr(mod, attr)))
 
     def _wrap(self, name, real):
         def wrapped(*args):
-            # a decode without subbin arrays is its own kernel
-            kname = ("decode_tiles_fused_nosub"
-                     if name == "decode_tiles_fused" and args[2] is None
-                     else name)
+            kname = name
+            if name == "decode_tiles_fused" and args[2] is None:
+                # a decode without subbin arrays is its own kernel
+                kname = "decode_tiles_fused_nosub"
+            elif name == "solve_tiles_blockwise":
+                if args[0].element_size() == 8:
+                    kname = "solve_tiles_blockwise_64"
+                elif self.ordered:
+                    kname = "solve_tiles_blockwise_ordered32"
             key = (kname,) + tuple(
                 (tuple(a.shape), str(a.dtype)) if hasattr(a, "shape") else a
                 for a in args)
@@ -527,6 +599,194 @@ def v1_sections_reencode(blob, info: dict) -> None:
         "byte-identically on the CPU")
 
 
+# per (path, dtype): (kernels each adaptive path must launch, kernels it
+# must not): f32 fields run the tile solve's 32-bit lane, f64 its 64-bit
+ADAPTIVE_KERNELS = {
+    ("compress", "float32"): (("solve_tiles_blockwise", "encode_ints_fused"),
+                              ("solve_tiles_blockwise_64",)),
+    ("compress", "float64"): (("solve_tiles_blockwise_64", "encode_ints_fused"),
+                              ("solve_tiles_blockwise",)),
+    ("decompress", "float32"): (("decode_tiles_fused",), ()),
+    ("decompress", "float64"): (("decode_tiles_fused",), ()),
+}
+
+
+def within_rung_bounds(x, y, blob, eng) -> bool:
+    """Every cell within its own tile's rung bound, the rule of the
+    reference's tests/test_order_properties.py: ``eb * range * 2**(k_max
+    - rung)`` (the header holds the loosest rung, ``eb * range *
+    2**k_max``), with a slack of 64 ulps of the dtype."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bitstream
+    from repro_torch.tda.adaptive import tile_ids
+
+    c = bitstream.read_container_v2(blob)
+    layout = eng.container_layout(c)
+    rung = torch.from_numpy(c.eb_ladder().astype(np.int64)).cuda()
+    tile_bound = c.header.eps_abs * torch.exp2(-rung.double())
+    bound = (tile_bound[tile_ids(layout, rung.device)].reshape(x.shape)
+             * (1 + 64 * float(np.finfo(x.dtype).eps)))
+    err = (torch.from_numpy(x).cuda().double()
+           - torch.from_numpy(y).cuda().double()).abs()
+    return bool((err <= bound).all())
+
+
+def adaptive_path(name, shape, dtype, eng, executor, kernels, topology, tda,
+                  make_field, launches: dict, rec, uniform_blob, eb=EB,
+                  mixed=False):
+    """Phase 2e: one full-size adaptive compress -> decompress through the
+    entry points; each path's launches counted alone and checked against
+    ``ADAPTIVE_KERNELS``; strict SoS order, no critical-point error, every
+    cell within its tile's rung bound.  ``mixed``: the ladder must take
+    two rungs or more, and ``tighten_ladder`` must raise a rung."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bitstream
+    from repro_torch.tda import adaptive
+
+    x = make_field(name, shape, np.dtype(dtype), seed=0)
+    field = f"{name}{'x'.join(map(str, shape))}/{dtype} adaptive"
+    if eb != EB:
+        field += f" eb {eb}"
+    raised = []
+    tighten = adaptive.tighten_ladder
+
+    def spy(x_, layout, ladder, *a, **kw):
+        out = tighten(x_, layout, ladder, *a, **kw)
+        raised.append(int((out > np.asarray(ladder)).sum()))
+        return out
+
+    executor.reset_transfer_counts()
+    kernels.reset_launches()
+    rec.ordered = True
+    adaptive.tighten_ladder = spy
+    t0 = time.perf_counter()
+    try:
+        blob, stats = eng.compress(x, eb, adaptive_eb="tda", return_stats=True)
+    finally:
+        adaptive.tighten_ladder = tighten
+    cold_c = time.perf_counter() - t0
+    rec.ordered = False
+    launches[f"{field} compress"] = dict(kernels.LAUNCHES)
+    rounds = executor.TRANSFER_COUNTS["d2h_round"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    y = eng.decompress(blob)
+    cold_d = time.perf_counter() - t0
+    launches[f"{field} decompress"] = dict(kernels.LAUNCHES)
+    for (path, dt), (need, never) in ADAPTIVE_KERNELS.items():
+        if dt != dtype:
+            continue
+        got = launches[f"{field} {path}"]
+        for k in need:
+            check(got.get(k, 0) > 0, f"{k} never launched on the {field} {path} path")
+        for k in never:
+            check(got.get(k, 0) == 0, f"{k} launched on the {field} {path} path")
+    check(y.shape == x.shape and y.dtype == x.dtype, f"{field}: bad output shape")
+    check(np.isfinite(y).all(), f"{field}: non-finite decode")
+    check(within_rung_bounds(x, y, blob, eng),
+          f"{field}: a cell exceeds its tile's rung bound")
+    t0 = time.perf_counter()
+    xt, yt = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    check(order_preserved(xt, yt, topology), f"{field}: local order broken")
+    lov = tda.local_order_violations(xt, yt)
+    check(lov == 0, f"{field}: {lov} local order violations")
+    cpe = tda.critical_point_errors(xt, yt)
+    check(cpe == (0, 0, 0), f"{field}: critical point errors {cpe}")
+    checks_s = time.perf_counter() - t0
+    del xt, yt
+    c = bitstream.read_container_v2(blob)
+    rungs = np.bincount(c.eb_ladder(), minlength=bitstream.EB_LADDER_K_MAX + 1)
+    check(len(raised) == 1, f"{field}: the ladder was scored {len(raised)} times")
+    if mixed:
+        check(int((rungs > 0).sum()) >= 2, f"{field}: the ladder takes one "
+              f"rung only ({rungs.tolist()})")
+        check(raised[0] > 0, f"{field}: tighten_ladder raised no rung")
+    info = {"field": field, "eb": eb, "raw_MB": x.nbytes / 1e6,
+            "container_bytes": len(blob), "ratio": x.nbytes / len(blob),
+            "ratio_vs_uniform": len(uniform_blob) / len(blob),
+            "rungs": rungs.tolist(), "tighten_raised": raised[0],
+            "section_words": list(c.stream_words()),
+            "halo_rounds": rounds, "n_sweeps": stats.n_sweeps,
+            "cold_compress_s": cold_c, "cold_decompress_s": cold_d,
+            "topology_checks_s": checks_s}
+    log(f"full size {field}: rungs (loosest first) {rungs.tolist()} "
+        f"({raised[0]} raised by tighten_ladder), ratio "
+        f"{info['ratio']:.3f} = {info['ratio_vs_uniform']:.4f}x the uniform "
+        f"container's; section words {c.stream_words()}; order kept, "
+        f"critical point errors {cpe}, every cell within its rung bound")
+    return (x, blob, y), info
+
+
+def adaptive_cpu_agreement(x, blob, y, eng, info: dict) -> None:
+    """A one-tile-deep cut of the field (16 X-rows) compressed adaptively
+    on the card and on the CPU gives the same bytes; the full container
+    decodes on the CPU to the card's bits."""
+    import numpy as np
+
+    cut = np.ascontiguousarray(x[:16])
+    eb = info["eb"]
+    t0 = time.perf_counter()
+    blob_cut = eng.compress(cut, eb, adaptive_eb="tda")
+    check(eng.compress(cut, eb, adaptive_eb="tda", device="cpu") == blob_cut,
+          f"{info['field']}: the 16-row cut's adaptive container differs on "
+          "the CPU")
+    info["cpu_cut_compress_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y_cpu = eng.decompress(blob, device="cpu")
+    info["cpu_decompress_s"] = time.perf_counter() - t0
+    check(y_cpu.tobytes() == y.tobytes(),
+          f"{info['field']}: the CPU decodes the container to other values")
+    log(f"full size {info['field']}: the {cut.shape} cut's container equals "
+        "the CPU's; the CPU decodes the full container to the card's bits")
+
+
+def ff32_path(name, shape, dtype, ops, subbin, quantize, tda, kernels,
+              make_field, launches: dict) -> dict:
+    """Phase 2f: the FF32 contract at full size through
+    ``repro_torch.kernels.ops``: quantize -> subbin solve -> dequantize,
+    each FF32 kernel launched once; bound, local order, critical points."""
+    import numpy as np
+    import torch
+
+    x = make_field(name, shape, np.dtype(dtype), seed=0)
+    field = f"{name}{'x'.join(map(str, shape))}/{dtype} ff32"
+    xt = torch.from_numpy(x).cuda()
+    eb_abs = EB * (float(x.max()) - float(x.min()))
+    eps = np.float32(quantize.effective_eps(eb_abs))
+    check(ops.ff32_domain_ok(xt, eps), f"{field}: outside the FF32 domain")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bins = ops.quantize_ff32(xt, eps)
+    sub, sweeps = subbin.solve_subbins(bins, xt)
+    y = ops.dequantize_ff32(bins, sub, eps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(kernels.LAUNCHES)
+    launches[field] = got
+    for k, n in (("quantize_ff32", 1), ("dequantize_ff32", 1)):
+        check(got.get(k, 0) == n, f"{k} launched {got.get(k, 0)} times on "
+                                  f"the {field} path (want {n})")
+    check(got.get("solve_blockwise", 0) > 0, f"solve_blockwise never launched "
+                                             f"on the {field} path")
+    err = float((xt.double() - y.double()).abs().max())
+    check(err <= eb_abs, f"{field}: error {err} exceeds the bound {eb_abs}")
+    lov = tda.local_order_violations(xt, y)
+    check(lov == 0, f"{field}: {lov} local order violations")
+    cpe = tda.critical_point_errors(xt, y)
+    check(cpe == (0, 0, 0), f"{field}: critical point errors {cpe}")
+    info = {"field": field, "eps32": float(eps), "max_err": err,
+            "bound": eb_abs, "sweeps": sweeps, "wall_s": wall,
+            "launches": got}
+    log(f"full size {field}: max error {err:.6g} <= {eb_abs:.6g}, order kept, "
+        f"critical point errors {cpe}, {sweeps} band sweeps, {wall:.3f} s")
+    return info
+
+
 # (tile-straddling box, box inside one (16, 16, 64) tile, one-cell slab)
 ROI_REGIONS = {
     "straddle": (slice(10, 40), slice(100, 170), slice(50, 200)),
@@ -676,7 +936,7 @@ def warm_timing(x, blob, y, eng, info: dict, **kw) -> None:
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        b2 = eng.compress(x, EB, **kw)
+        b2 = eng.compress(x, info.get("eb", EB), **kw)
         tc.append(time.perf_counter() - t0)
         check(b2 == blob, f"{info['field']}: compress not deterministic on the card")
         t0 = time.perf_counter()
@@ -771,7 +1031,16 @@ def bound_ms(name, args, out, relaxations: int = 0) -> tuple[float, str]:
         bitmap, counts = out
         nbytes = args[0].nbytes + bitmap.nbytes + counts.nbytes
         ops = float(args[0].numel())  # one test per word
-    elif name == "solve_tiles_blockwise":
+    elif name in ("quantize_ff32", "dequantize_ff32"):
+        nbytes = sum(a.nbytes for a in args if hasattr(a, "nbytes")) + out.nbytes
+        # quantize: a multiply, a rounding, then twice a conversion, two
+        # adds, two multiplies and two compares; dequantize: a conversion,
+        # an add and a multiply (its ordered-int add is integer work)
+        per = 16 if name == "quantize_ff32" else 3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = out.numel() * per / F32_OPS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    elif name.startswith("solve_tiles_blockwise"):
         sub_h, flags = args
         res, iters = out
         nbytes = sub_h.nbytes + flags.nbytes + res.nbytes + iters.nbytes
@@ -858,9 +1127,14 @@ def kernel_phase(rec, launches: dict):
         subbin_sweep,
     )
 
+    tile_solve = (subbin_sweep.solve_tiles_blockwise,
+                  subbin_sweep.solve_tiles_blockwise_plain)
     impl = {
-        "solve_tiles_blockwise": (subbin_sweep.solve_tiles_blockwise,
-                                  subbin_sweep.solve_tiles_blockwise_plain),
+        "solve_tiles_blockwise": tile_solve,
+        "solve_tiles_blockwise_ordered32": tile_solve,
+        "solve_tiles_blockwise_64": tile_solve,
+        "quantize_ff32": (rec.real["quantize_ff32"], ref.quantize_ff32_ref),
+        "dequantize_ff32": (rec.real["dequantize_ff32"], ref.dequantize_ff32_ref),
         "encode_ints_fused": (fused_encode.encode_ints_fused,
                               fused_encode.encode_ints_plain),
         "decode_tiles_fused": (fused_decode.decode_tiles_fused,
@@ -935,7 +1209,10 @@ def kernel_phase(rec, launches: dict):
             library_ms = cuda_ms(lambda: torch.count_nonzero(args[0], dim=1), 20)
             extra["library_call"] = "torch.count_nonzero(words, dim=1): counts only"
         b_ms, b_by = bound_ms(name, args, out, work[label])
-        by_path = {p: c[name] for p, c in launches.items() if c.get(name)}
+        counter = COUNTER.get(name, name)
+        by_path = {p: c[counter] for p, c in launches.items()
+                   if c.get(counter) and row_paths(name, p)}
+        check(by_path, f"{name}: no path launched it")
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -968,14 +1245,21 @@ def main() -> None:
 
     import numpy as np
 
-    from repro_torch import core
+    from repro_torch import core, tda
     from repro_torch import engine as eng
     from repro_torch import kernels
-    from repro_torch.core import bitstream, topology
+    from repro_torch.core import bitstream, quantize, subbin, topology
     from repro_torch.data.fields import FIELD_GENERATORS, make_scientific_field
     from repro_torch.engine import device as device_mod
     from repro_torch.engine import executor
-    from repro_torch.kernels import bitshuffle_kernel, rze_kernel, subbin_sweep
+    from repro_torch.kernels import (
+        bitshuffle_kernel,
+        fused_decode,
+        ops,
+        quantize_kernel,
+        rze_kernel,
+        subbin_sweep,
+    )
 
     check(not any(m == "jax" or m.startswith(("jax.", "repro."))
                   or m == "repro" for m in sys.modules), "jax/repro imported")
@@ -985,11 +1269,22 @@ def main() -> None:
     card = smi[0] if smi else "nvidia-smi gave nothing"
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
+    phase_s: dict[str, float] = {}
+    last = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+
     # ---- 1. build
     build_s = kernels.build()
     log(f"kernels built in {build_s:.1f} s")
+    phase_done("1 build")
 
-    rec = Recorder(device_mod, (subbin_sweep, bitshuffle_kernel, rze_kernel))
+    rec = Recorder(device_mod, (subbin_sweep, bitshuffle_kernel, rze_kernel),
+                   (quantize_kernel, fused_decode))
     field = functools.lru_cache(maxsize=None)(make_scientific_field)
 
     # ---- 2. main path at full size, each path's launches counted alone
@@ -1008,6 +1303,7 @@ def main() -> None:
             f"{r['n_sweeps']} sweeps; download {r['d2h_ratio']:.4f}x the "
             f"container (word-level form {r['word_form_d2h_ratio']:.4f}x, "
             f"staged {r['staged_d2h_ratio']:.4f}x); card {card}")
+    phase_done("2 main path")
 
     # ---- 2d. the whole-field (v1) compressor at full size, its decode
     # held to the tiled engine's decode of the same field
@@ -1022,6 +1318,7 @@ def main() -> None:
             f"{info['compress_MB_s']:.1f} MB/s, decompress "
             f"{info['decompress_MB_s']:.1f} MB/s (warm medians of 3), "
             f"{info['n_sweeps']} global band sweeps; card {card}")
+    phase_done("2d v1")
 
     # ---- 2b. plain path at full size
     plain_runs = [plain_path(*cell, eng, executor, kernels, field, launches)
@@ -1035,12 +1332,37 @@ def main() -> None:
             f"{info['d2h_ratio']:.4f}x the container (word-level form "
             f"{info['word_form_d2h_ratio']:.4f}x, staged "
             f"{info['staged_d2h_ratio']:.4f}x); card {card}")
+    phase_done("2b plain path")
+
+    # ---- 2e. topology-adaptive error bounds at full size
+    adaptive_runs = [adaptive_path(*cell, eng, executor, kernels, topology,
+                                   tda, field, launches, rec, arrays[1])
+                     for cell, (arrays, _) in zip((ISABEL, MIRANDA), runs)]
+    miranda = field(*MIRANDA[:2], np.dtype(MIRANDA[2]), seed=0)
+    adaptive_runs.append(adaptive_path(
+        *MIRANDA, eng, executor, kernels, topology, tda, field, launches, rec,
+        eng.compress(miranda, EB_MIXED), eb=EB_MIXED, mixed=True))
+    del miranda
+    for arrays, info in adaptive_runs:
+        warm_timing(*arrays, eng, info, adaptive_eb="tda")
+        results.append(info)
+        log(f"full size {info['field']}: ratio {info['ratio']:.3f}, compress "
+            f"{info['compress_MB_s']:.1f} MB/s, decompress "
+            f"{info['decompress_MB_s']:.1f} MB/s (warm medians of 3), "
+            f"{info['halo_rounds']} halo rounds; card {card}")
+    phase_done("2e adaptive")
+
+    # ---- 2f. the FF32 contract at full size
+    ff32 = ff32_path(*ISABEL, ops, subbin, quantize, tda, kernels, field,
+                     launches)
+    phase_done("2f ff32")
     log("launches by path: " + json.dumps(launches))
     log(json.dumps({"full_size": results, "launches_by_path": launches}))
     profiles = {f"{cell[0]}{kind}": profile(*cell, api, field, **kw)
                 for kind, api, kw in (("", eng, {}),
                                       (" plain", eng, {"preserve_order": False}),
-                                      (" v1", core, {"container_version": 1}))
+                                      (" v1", core, {"container_version": 1}),
+                                      (" adaptive", eng, {"adaptive_eb": "tda"}))
                 for cell in (ISABEL, MIRANDA)}
     for cell, prof in profiles.items():
         for what, p in prof.items():
@@ -1063,43 +1385,73 @@ def main() -> None:
         full_size_agreement(*arrays, eng, info, cpu_compress, v1_arrays[2])
     for (arrays, info), cpu_compress in zip(plain_runs, (True, False)):
         plain_agreement(*arrays, eng, info, cpu_compress)
+    for arrays, info in (adaptive_runs[0], adaptive_runs[2]):
+        adaptive_cpu_agreement(*arrays, eng, info)
+    phase_done("profiles and CPU agreement")
 
     # ---- 2c. region reads of the full-size containers
     roi = roi_phase({runs[0][1]["field"]: runs[0][0][1],
                      plain_runs[0][1]["field"]: plain_runs[0][0][1],
                      runs[1][1]["field"]: runs[1][0][1]}, eng, executor)
-    del runs, plain_runs, v1_runs
+    del runs, plain_runs, v1_runs, adaptive_runs
+    phase_done("2c ROI")
 
     # ---- 3. width and tile-shape runs (same entry points, not counted):
     # the full-size fields again at bounds that need int32 / int64 bins
     # (isabel's also on the plain path: the value encode's int32 store),
-    # 1-D and 2-D fields on their plan tiles, and a strictly decreasing
-    # run of 40000 floats inside one bin, whose subbins count down from
-    # 39999 and so need the int32 subbin section
+    # 1-D and 2-D fields on their plan tiles, an adaptive 1-D f64 field
+    # (the 64-bit ordered lane on the (1, 1, 4096) tile, whose haloed
+    # state does not fit shared memory; its bound is the loosest rung's),
+    # and a strictly decreasing run of 40000 floats inside one bin, whose
+    # subbins count down from 39999 and so need the int32 subbin section
     n = 40000
     chain = (1.0 + (n - np.arange(n)) * 2.0**-23).astype(np.float32)
     isabel = field(*ISABEL[:2], np.dtype(ISABEL[2]), seed=0)
-    widths = [(f"{ISABEL[0]}{ISABEL[1]}", isabel, 1e-6, "noa", True),
-              (f"{ISABEL[0]}{ISABEL[1]} plain", isabel, 1e-6, "noa", False),
-              (f"{MIRANDA[0]}{MIRANDA[1]}", field(*MIRANDA[:2], np.dtype(MIRANDA[2]), seed=0), 1e-11, "noa", True),
-              ("waves(1048576,)", field("waves", (1 << 20,), np.dtype("float32"), seed=0), 1e-2, "noa", True),
-              ("front(2048, 2048)", field("front", (2048, 2048), np.dtype("float64"), seed=0), 1e-2, "noa", True),
-              ("decreasing-run(40000,)", chain, 1.0, "abs", True)]
-    for label, x, eb, mode, order in widths:
-        blob = eng.compress(x, eb, mode=mode, preserve_order=order)
+    waves64 = field("waves", (1 << 20,), np.dtype("float64"), seed=0)
+    # five noisy 4096-cell tiles and a smooth ramp, each boundary's left
+    # cell just above its right one: the ladder's rounds leave anchor
+    # inversions, whose ordered-space climbs need 8-byte subbin sections
+    rng = np.random.default_rng(0)
+    stair = np.concatenate([rng.standard_normal(4096) for _ in range(5)]
+                           + [np.linspace(0.0, 0.05, 4096)])
+    for t in range(1, 6):
+        w = rng.uniform(-0.5, 0.5)
+        stair[t * 4096], stair[t * 4096 - 1] = w, w + 1e-9
+    widths = [(f"{ISABEL[0]}{ISABEL[1]}", isabel, 1e-6, "noa", True, {}),
+              (f"{ISABEL[0]}{ISABEL[1]} plain", isabel, 1e-6, "noa", False, {}),
+              (f"{MIRANDA[0]}{MIRANDA[1]}", field(*MIRANDA[:2], np.dtype(MIRANDA[2]), seed=0), 1e-11, "noa", True, {}),
+              ("waves(1048576,)", field("waves", (1 << 20,), np.dtype("float32"), seed=0), 1e-2, "noa", True, {}),
+              ("waves(1048576,) adaptive", waves64, 1e-2, "noa", True, {"adaptive_eb": "tda"}),
+              ("staircase(24576,) adaptive", stair, 1e-2, "noa", True, {"adaptive_eb": "tda"}),
+              ("front(2048, 2048)", field("front", (2048, 2048), np.dtype("float64"), seed=0), 1e-2, "noa", True, {}),
+              ("decreasing-run(40000,)", chain, 1.0, "abs", True, {})]
+    for label, x, eb, mode, order, kw in widths:
+        rec.ordered = bool(kw)
+        blob = eng.compress(x, eb, mode=mode, preserve_order=order, **kw)
+        rec.ordered = False
         y = eng.decompress(blob)
         bound = eb if mode == "abs" else eb * (float(x.max()) - float(x.min()))
+        if kw:
+            bound *= 2.0**bitstream.EB_LADDER_K_MAX
         err = float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max())
         check(err <= bound, f"width run {label}@{eb}: bound violated")
         words = bitstream.read_container_v2(blob).stream_words()
         log(f"width run {label}/{x.dtype} eb {eb} {mode}: ratio "
             f"{x.nbytes / len(blob):.3f}, section words (bins, subbins) {words}")
+        if label.startswith("staircase"):
+            check(words[1] == 8, "the staircase did not reach 8-byte subbins")
+            check(blob == eng.compress(x, eb, adaptive_eb="tda", device="cpu"),
+                  "the staircase's container differs on the CPU")
     check(words[1] == 4, "the decreasing run did not reach int32 subbins")
     check(any(k[0] == "encode_values_fused" and k[-1] == torch.int32
               for k in rec.calls), "the value encode never stored int32 bins")
+    check(any(k[0] == "solve_tiles_blockwise_64" and k[1][0][1:] == (3, 3, 4098)
+              for k in rec.calls), "the 64-bit lane never ran the 1-D tile")
+    phase_done("3 width runs")
 
     # ---- 4. kernels against plain versions on the recorded operands
     rows = kernel_phase(rec, launches)
+    phase_done("4 kernels")
 
     # ---- 5. determinism manifests on the card: the order-preserving
     # containers (default and fused encode path) and the plain ones
@@ -1132,16 +1484,36 @@ def main() -> None:
                       f"{case}: the v1 decode differs from the tiled decode")
                 n += 1
     check(n == 24 and len(plain_hashes) == 24, "manifest cases missing")
+    n_adaptive = 0
+    loose = 2.0**bitstream.EB_LADDER_K_MAX
+    for name in sorted(FIELD_GENERATORS):
+        for dtype in ("float32", "float64"):
+            case = f"adaptive/{name}/{dtype}"
+            x = make_scientific_field(name, (17, 14, 12), np.dtype(dtype), seed=5)
+            for solver in device_mod.SOLVERS:
+                blob = eng.compress(x, EB, solver=solver, adaptive_eb="tda")
+                check(hashlib.sha256(blob).hexdigest() == manifest[case],
+                      f"{case} solver {solver}: container hash differs from "
+                      "the manifest")
+            bound = EB * loose * (float(x.max()) - float(x.min()))
+            err = float(np.abs(x.astype(np.float64)
+                               - eng.decompress(blob).astype(np.float64)).max())
+            check(err <= bound, f"{case}: round trip exceeds the ladder bound")
+            n_adaptive += 1
+    check(n_adaptive == 8, "adaptive manifest cases missing")
     log(f"determinism: {n}/24 manifest hashes and {n}/24 plain hashes "
         "reproduced on the card, each with the default and the fused encode "
         f"path; {n}/24 v1 containers equal the CPU's and decode to the tiled "
-        "decode")
+        f"decode; {n_adaptive}/8 adaptive hashes under each of "
+        f"{len(device_mod.SOLVERS)} solver values")
+    phase_done("5 determinism")
+    log("seconds per phase: " + json.dumps(phase_s))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "full_size": results,
-         "profiles": profiles, "roi": roi,
+         "ff32": ff32, "profiles": profiles, "roi": roi, "phase_s": phase_s,
          "launches_by_path": launches, "kernels": rows,
          "seconds": time.perf_counter() - T0}, indent=1))
     print(json.dumps({"kernels": rows}), flush=True)

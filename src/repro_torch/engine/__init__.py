@@ -4,6 +4,7 @@
     blob = compress(field, eb=1e-2)                        # on the CUDA device
     out  = decompress(blob)
     blob = compress(field, eb=1e-2, preserve_order=False)  # plain path
+    blob = compress(field, eb=1e-2, adaptive_eb="tda")     # per-tile eb ladder
     box  = decompress_roi(blob, (slice(0, 8), slice(4, 20), slice(None)))
     blob = compress(field, eb=1e-2, device="cpu")          # plain versions
 

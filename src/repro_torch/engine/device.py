@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from ..core import topology
-from ..core.quantize import quantize_broadcast
+from ..core.floatbits import float_to_ordered
+from ..core.quantize import decode_base, quantize_broadcast
 from ..kernels.fused_decode import decode_tiles_fused
 from ..kernels.fused_encode import encode_ints_fused, encode_values_fused
 from ..kernels.subbin_sweep import solve_tiles_blockwise
@@ -69,8 +70,8 @@ def resident_flags(bins_m: torch.Tensor, vals_m: torch.Tensor,
 
 
 def resident_solve(flags: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
-                   max_rounds: int):
-    """Subbin least fixed point over a resident tile batch.
+                   max_rounds: int, sub0: torch.Tensor | None = None):
+    """Least fixed point over a resident tile batch.
 
     Rounds alternate one gather that rebuilds every haloed tile from the
     current interiors (``idx``/``mask`` from ``engine.halo``) and the
@@ -78,20 +79,31 @@ def resident_solve(flags: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
     moves no tile (one host sync per round), which by monotonicity is the
     global least fixed point.
 
-    Returns (interiors (C, *t) int32, local1 (C,) sweeps of the first
-    local solve, last_round (C,) the last round in which the tile moved,
-    rounds run).
+    The state starts at ``sub0`` (the adaptive path's ordered-space
+    seed, int32 or int64) or, without it, at int32 zeros (the subbin
+    lane).  Cells outside every field read the lane's neutral value:
+    0 for subbins, ``iinfo.min`` for an ordered state, the signed twin of
+    the reference's unsigned 0.
+
+    Returns (interiors (C, *t) in the state's dtype, local1 (C,) sweeps
+    of the first local solve, last_round (C,) the last round in which the
+    tile moved, rounds run).
     """
     c = flags.shape[0]
     halo_shape = (c,) + tuple(idx.shape[1:])
     idx_l = idx.reshape(-1).long()
     mask_f = mask.reshape(-1)
-    cur = torch.zeros(flags.shape, dtype=torch.int32, device=flags.device)
+    if sub0 is None:
+        cur = torch.zeros(flags.shape, dtype=torch.int32, device=flags.device)
+        fill = 0
+    else:
+        cur = sub0
+        fill = torch.iinfo(sub0.dtype).min
     last_round = torch.zeros((c,), dtype=torch.int32, device=flags.device)
     local1 = last_round
     rnd = 1
     while rnd <= max_rounds:
-        haloed = torch.where(mask_f, cur.reshape(-1)[idx_l], 0)
+        haloed = torch.where(mask_f, cur.reshape(-1)[idx_l], fill)
         new, iters = solve_tiles_blockwise(haloed.reshape(halo_shape), flags)
         ch_t = (new != cur).reshape(c, -1).any(dim=1)
         if rnd == 1:
@@ -102,6 +114,40 @@ def resident_solve(flags: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
             break
         rnd += 1
     return cur, local1, last_round, min(rnd, max_rounds)
+
+
+# ------------------------------------------- adaptive-eb ordered-space path
+#
+# With per-tile eb ladders, neighbouring tiles quantize at different eps,
+# so the relative subbin count cannot express cross-eps constraints.  The
+# adaptive path solves in absolute ordered space: a cell's state is the
+# ordered int of its decoded value, seeded at its bin's decode base, and
+# every in-field SoS-less Freudenthal pair carries a constraint
+# (``topology.order_flags_all``).  The stored subbin is the ordered
+# distance climbed, which the unchanged decode inverts.  The reference
+# carries the state biased and unsigned; the port carries its signed
+# twin, the ordered int itself (see ``kernels.subbin_sweep``).
+
+def resident_frontend_adaptive(x_h: torch.Tensor, eps: torch.Tensor,
+                               dtype: torch.dtype):
+    """Quantize at per-tile eps, seed the ordered-space state at each
+    cell's decode base, and take the all-pairs flags, over one resident
+    batch.  Returns (bins_enc (C, *t) with 0 at invalid cells, s_init
+    (C, *t) ordered ints with ``iinfo.min`` at invalid cells, flags
+    (C, *t) int32)."""
+    capacity = x_h.shape[0]
+    valid_h = torch.isfinite(x_h)
+    x0 = torch.where(valid_h, x_h, torch.zeros((), dtype=x_h.dtype,
+                                                device=x_h.device))
+    eps_b = eps[:, None, None, None]
+    bins_h = quantize_broadcast(x0, eps_b, dtype)
+    valid = _interior(valid_h)
+    bins_enc = torch.where(valid, _interior(bins_h), 0)
+    s_init = float_to_ordered(decode_base(_interior(bins_h), eps_b, dtype))
+    s_init = torch.where(valid, s_init, torch.iinfo(s_init.dtype).min)
+    vals_m = _merge(torch.where(valid_h, x0, float("inf")))
+    flags = _split_interior(topology.order_flags_all(vals_m), capacity)
+    return bins_enc, s_init.contiguous(), flags.contiguous()
 
 
 def encode_tiles(ints: torch.Tensor, chunk_len: int, transform: str):

@@ -3,7 +3,8 @@
 ``compress_many`` turns a mix of 1/2/3-D field requests into shared
 fixed-shape tile batches (plan), runs them on the device (execute, see
 ``executor``), and serializes one v2 container per request, with the
-subbin stream (``preserve_order=True``) or without it (the plain path).
+subbin stream (``preserve_order=True``) or without it (the plain path),
+and with a per-tile eb ladder (``adaptive_eb="tda"``) or without.
 ``decompress`` reads a whole field back, ``decompress_roi`` and
 ``decode_tiles_for_region`` only the tiles a region touches.  Containers
 are byte-identical to the reference's and decoded values bit-identical.
@@ -23,6 +24,7 @@ from ..core import bitstream
 from ..core.lopc import CompressStats
 from ..core.nonfinite import decode_nonfinite, encode_nonfinite
 from ..core.quantize import abs_bound_from_mode, bin_dtype_for, check_bin_range, effective_eps
+from ..tda.adaptive import ADAPTIVE_EB_MODES, ladder_indices
 from . import device as _device
 from .executor import DECODE_PATHS, default_executor
 from .plan import (
@@ -38,8 +40,7 @@ from .plan import (
 
 FLAG_ORDER_PRESERVING = bitstream.FLAG_ORDER_PRESERVING
 FLAG_HAS_NONFINITE = bitstream.FLAG_HAS_NONFINITE
-
-ADAPTIVE_EB_MODES = ("off", "tda")
+FLAG_ADAPTIVE_EB = bitstream.FLAG_ADAPTIVE_EB
 
 DEFAULT_PLAN = CompressionPlan()
 
@@ -113,7 +114,7 @@ def _check_eps(x: np.ndarray, eps_abs: float):
 class _Request:
     """One field moving through a compress_many call."""
 
-    def __init__(self, x, eb, mode, plan):
+    def __init__(self, x, eb, mode, plan, adaptive_eb: str, dev):
         x = np.asarray(x)
         _validate(x, eb)
         self.nonfinite = None
@@ -122,18 +123,33 @@ class _Request:
         self.x = x
         self.eb = float(eb)
         self.mode = mode
+        self.adaptive = adaptive_eb == "tda"
         self.eps_abs = abs_bound_from_mode(x, eb, mode)
-        _check_eps(x, self.eps_abs)
+        _check_eps(x, self.eps_abs)  # the tightest rung is the user bound
         self.layout = plan.layout_for(x.shape)
+        self.ladder = None
+        if self.adaptive:
+            # scored on the device; the header bound is the loosest rung,
+            # rung k_max the user bound (power-of-2 scaling is exact)
+            self.ladder = ladder_indices(x, self.layout, self.eps_abs,
+                                         device=dev)
+            self.eps_abs = float(self.eps_abs * 2.0**bitstream.EB_LADDER_K_MAX)
         self.eps_eff = effective_eps(self.eps_abs)
         # bound on |bin| (round + <= 2 correction steps), known before any
-        # device work: it picks the narrowest bins section width
-        self.max_bin = float(np.max(np.abs(x), initial=0.0)) / self.eps_eff + 4
+        # device work: it picks the narrowest bins section width.  Adaptive
+        # requests bound it at the tightest rung.
+        eps_tight = self.eps_eff * (
+            2.0**-bitstream.EB_LADDER_K_MAX if self.adaptive else 1.0)
+        self.max_bin = float(np.max(np.abs(x), initial=0.0)) / eps_tight + 4
         self.bins_store = _store_bin_dtype(self.max_bin, np.dtype(x.dtype))
         self.sweeps = 0
 
     def eps_tiles(self) -> np.ndarray:
-        return np.full(self.layout.n_tiles, self.eps_eff, np.float64)
+        """(n_tiles,) effective eps: the ladder-scaled per-tile bounds of
+        an adaptive request, the uniform bound otherwise."""
+        if not self.adaptive:
+            return np.full(self.layout.n_tiles, self.eps_eff, np.float64)
+        return self.eps_eff * np.exp2(-self.ladder.astype(np.float64))
 
 
 def _store_bin_dtype(max_bin: float, dtype) -> np.dtype:
@@ -182,7 +198,8 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
     solve always runs the blockwise kernel.  ``encode_path``
     (``staged``/``fused``/``auto``) picks the download form and, for
     plain f32 fields, the fused value encode; every path gives the same
-    bytes (see ``executor``).
+    bytes (see ``executor``).  ``adaptive_eb="tda"`` scores every tile
+    on the device and writes a per-tile eb ladder (``tda.adaptive``).
 
     Returns a list of blobs, or (blobs, stats) when ``return_stats``.
     """
@@ -194,8 +211,6 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
     if adaptive_eb != "off" and not preserve_order:
         raise ValueError("adaptive_eb requires preserve_order=True (the "
                          "ladder exists to protect topology)")
-    if adaptive_eb != "off":
-        _not_in_slice("adaptive_eb", 9, "adaptive eb")
     if put is not None:
         _not_in_slice("put", 13, "distributed")
     if group_cb is not None:
@@ -208,17 +223,19 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
     ebs = list(eb) if np.ndim(eb) else [eb] * len(fields)
     if len(ebs) != len(fields):
         raise ValueError("eb must be a scalar or one bound per field")
-    reqs = [_Request(x, e, mode, plan) for x, e in zip(fields, ebs)]
+    reqs = [_Request(x, e, mode, plan, adaptive_eb, dev)
+            for x, e in zip(fields, ebs)]
     ex = default_executor(plan, dev, encode_path)
 
     groups: dict[tuple, list[int]] = {}
     for i, r in enumerate(reqs):
         groups.setdefault(
-            (np.dtype(r.x.dtype), r.layout.tile, r.bins_store), []).append(i)
+            (np.dtype(r.x.dtype), r.layout.tile, r.bins_store, r.adaptive),
+            []).append(i)
 
     blobs: list[bytes | None] = [None] * len(reqs)
     stats: list[CompressStats | None] = [None] * len(reqs)
-    for (dtype, _tile, _store), members in groups.items():
+    for (dtype, _tile, _store, _adaptive), members in groups.items():
         _compress_group([reqs[i] for i in members], dtype, ex,
                         preserve_order, [blobs, stats], members, return_stats)
     if return_stats:
@@ -244,7 +261,7 @@ def _compress_group(reqs, dtype, ex, preserve_order, out, members,
     gs = ex.compress_tiles(
         np.concatenate(x_tiles), np.concatenate(eps_tiles),
         tuple(r.layout for r in reqs), dtype, preserve_order,
-        bins_store=reqs[0].bins_store)
+        bins_store=reqs[0].bins_store, adaptive=reqs[0].adaptive)
 
     # per-request solver diagnostics (sweeps are never serialized)
     if preserve_order:
@@ -264,6 +281,10 @@ def _compress_group(reqs, dtype, ex, preserve_order, out, members,
         if r.nonfinite is not None:
             flags |= FLAG_HAS_NONFINITE
             extra[bitstream.TAG_NONFINITE] = r.nonfinite
+        if r.adaptive:
+            flags |= FLAG_ADAPTIVE_EB
+            extra[bitstream.TAG_EB_LADDER] = \
+                bitstream.serialize_eb_ladder(r.ladder)
         header = bitstream.Header(
             dtype=np.dtype(dtype), shape=r.x.shape, eb_mode=r.mode,
             eb=r.eb, eps_abs=float(r.eps_abs), flags=flags)

@@ -3,7 +3,10 @@
 A compress group's tiles are uploaded once per device batch (padded to a
 bucketed *resident capacity*), and the device stages run there:
 quantize -> order flags -> bins encode -> halo-round subbin solve ->
-subbin encode for order-preserving groups; quantize -> bins encode for
+subbin encode for order-preserving groups (adaptive groups: quantize at
+per-tile eps, all-pairs flags, the halo-round solve in ordered space
+seeded at the decode bases, the ordered distance as the subbin, in
+16, 32 or 64 bits); quantize -> bins encode for
 plain (``preserve_order=False``) groups, where an f32 group on the fused
 path runs the whole chain as one kernel (``encode_values_fused``).  One
 download per group brings back the streams, in one of two forms that
@@ -151,14 +154,17 @@ class Executor:
     def compress_tiles(self, x_tiles: np.ndarray, eps_tiles: np.ndarray,
                        layouts: tuple[TileLayout, ...], dtype,
                        preserve_order: bool = True,
-                       bins_store=None) -> GroupStreams:
+                       bins_store=None, adaptive: bool = False) -> GroupStreams:
         """Run one compress group on the device.
 
         ``x_tiles`` is the group's concatenated haloed tiles with NaN
         marking every cell outside a field; ``eps_tiles`` the per-tile
         effective bounds; ``bins_store`` the (possibly narrowed) section
-        word dtype of the bins stream.  Plain groups upload no halo
-        tables and run no flags and no solve.
+        word dtype of the bins stream.  ``adaptive`` groups (per-tile eb
+        ladders) solve in ordered space: all-pairs flags, the state seeded
+        at each cell's decode base, the subbin the ordered distance
+        climbed (``device.resident_frontend_adaptive``).  Plain groups
+        upload no halo tables and run no flags and no solve.
         """
         layout0 = layouts[0]
         n_total = x_tiles.shape[0]
@@ -198,8 +204,12 @@ class Executor:
                 chunks.append([n_chunk, capacity, device.resident_encode_fused(
                     x_dev, eps_dev, tdt, bins_tdt, bins_chunk), None])
                 continue
-            bins_enc, bins_m, vals_m = device.resident_quantize(
-                x_dev, eps_dev, tdt, preserve_order)
+            if adaptive:
+                bins_enc, s_init, flags = device.resident_frontend_adaptive(
+                    x_dev, eps_dev, tdt)
+            else:
+                bins_enc, bins_m, vals_m = device.resident_quantize(
+                    x_dev, eps_dev, tdt, preserve_order)
             del x_dev
             bins_s = device.encode_tiles(
                 bins_enc.to(bins_tdt).reshape(capacity, -1), bins_chunk,
@@ -211,11 +221,22 @@ class Executor:
             idx, mask = halo.group_index(layouts[lo:hi], capacity)
             TRANSFER_COUNTS["h2d_aux"] += 2
             TRANSFER_COUNTS["bytes_h2d"] += idx.nbytes + mask.nbytes
-            flags = device.resident_flags(bins_m, vals_m, capacity)
-            del bins_m, vals_m
-            sub, local1, last_round, rounds = device.resident_solve(
-                flags, self._put(idx), self._put(mask),
-                max_rounds=n_chunk * layout0.tile_elems + 2)
+            if adaptive:
+                s_final, local1, last_round, rounds = device.resident_solve(
+                    flags, self._put(idx), self._put(mask),
+                    max_rounds=n_chunk * layout0.tile_elems + 2, sub0=s_init)
+                # the stored subbin is the ordered distance climbed above
+                # the bin base (0 at invalid cells, whose state never
+                # moves); subtracting in the state's own width wraps as
+                # the reference's unsigned subtraction does: no widening
+                sub = s_final - s_init
+                del s_final, s_init
+            else:
+                flags = device.resident_flags(bins_m, vals_m, capacity)
+                del bins_m, vals_m
+                sub, local1, last_round, rounds = device.resident_solve(
+                    flags, self._put(idx), self._put(mask),
+                    max_rounds=n_chunk * layout0.tile_elems + 2)
             TRANSFER_COUNTS["d2h_round"] += rounds
             chunks.append([n_chunk, capacity, bins_s, sub, local1,
                            last_round])
@@ -226,7 +247,14 @@ class Executor:
             # never changes the subbin stream
             TRANSFER_COUNTS["d2h_aux"] += len(chunks)
             sub_top = max(device.sub_max(c[3]) for c in chunks)
-            sub_store = np.dtype(np.int16 if sub_top < 2**15 else np.int32)
+            if sub_top < 2**15:
+                sub_store = np.dtype(np.int16)
+            elif sub_top < 2**31:
+                sub_store = np.dtype(np.int32)
+            else:
+                # adaptive ordered-space distances of f64 fields can
+                # exceed int32: kernel 2's w=64 instantiation encodes them
+                sub_store = np.dtype(np.int64)
             subs_cpt, subs_chunk = chunks_per_tile(layout0, sub_store)
             for c in chunks:
                 c[3] = device.encode_tiles(

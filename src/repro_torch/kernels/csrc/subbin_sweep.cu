@@ -1,21 +1,35 @@
 // Subbin fixed-point solves for Hopper (sm_90a).
 //
-// 1. `lopc_solve_tiles` replaces the Pallas TPU kernel
-//    `solve_tiles_blockwise` of src/repro/kernels/subbin_sweep.py (body
-//    `_make_tile_kernel`): the tiled engine's solve.
+// 1. `lopc_solve_tiles` (int32 state) and `lopc_solve_tiles64` (int64
+//    state) replace the Pallas TPU kernel `solve_tiles_blockwise` of
+//    src/repro/kernels/subbin_sweep.py (body `_make_tile_kernel`): the
+//    tiled engine's solve.
 // 2. `lopc_band_sweep` replaces the Pallas TPU kernel `solve_blockwise`
 //    of the same file (`_one_global_sweep`, `_sweep_kernel`,
 //    `_relax_band`): the whole-field solve of the v1 compressor.
 //
 // ---- 1. Tile-local solve
 //
-// What it computes: for each haloed int32 tile (halo held fixed), repeat
+// What it computes: for each haloed tile (halo held fixed), repeat
 //     cur = max(cur, max_k[flag bit k](nbr_k + tie_k))
 // over the 14 Freudenthal offsets as synchronous (Jacobi) sweeps until no
 // interior cell changes or `max_iters` sweeps ran.  Returns the interiors
 // and, per tile, the index of the last sweep that changed a cell (0 when
 // the tile was already at its fixed point).  Jacobi is the reference's
 // schedule, so the sweep counts match it, not only the fixed point.
+//
+// Two lanes.  The subbin lane (order-preserving compress) carries int32
+// subbins >= 0.  The ordered-space lane (adaptive error bounds) carries
+// each cell's decoded value as an ordered int: the reference holds it
+// biased and unsigned (uint32 for f32 fields, uint64 for f64, 0 the
+// neutral fill); here it is the signed ordered int itself, its twin
+// under the order-preserving bijection u = s + 2^(w-1) mod 2^w, which
+// commutes with the tie's +1, so the fixed point, the sweep counts and
+// the stored differences are the same bits, and INT_MIN stands for the
+// unsigned 0.  The kernel maxes only over set flag bits, so it never
+// reads a neutral or fill value that no set bit points at.  The f32 lane
+// runs the int32 instantiation, the f64 lane the int64 one; the +1 is
+// added in the unsigned twin, where wrapping is defined.
 //
 // What bounds it on this card: the tile is re-read every sweep, so the
 // work is sweeps x cells, and device memory would be read that many times
@@ -30,6 +44,16 @@
 // sweep; that register stage is the second buffer of the Jacobi scheme.
 // `__syncthreads_or` is the "did anything move" test.  What remains is
 // shared-memory latency and the per-sweep barriers.
+//
+// The int64 lane's haloed tile is 171 KB for 16x16x64 and 104.5 KB for
+// 1x64x64, both within the 227 KB a block may use (one CTA per SM), but
+// 295 KB for the 1-D 1x1x4096 tile.  A tile whose haloed state does not
+// fit keeps only its interior in shared memory (32 KB there): each cell
+// carries a mask of the set flag bits whose neighbour lies in the halo,
+// and reads those neighbours from the input tile in device memory, where
+// the frozen halo already is (through L1; a 1-D tile has two such
+// neighbours, its Z ends).  The interiors are then read and written in
+// shared memory exactly as in the haloed form.
 //
 // ---- 2. Whole-field band sweep
 //
@@ -71,33 +95,59 @@ __constant__ int kOff[14][3] = {
     {-1, -1, -1},
 };
 
-template <int CPT>
+// The state's unsigned twin: the tie's +1 is added there, where wrapping
+// is defined (signed overflow is not).
+template <typename T> struct Unsigned;
+template <> struct Unsigned<int32_t> { using type = uint32_t; };
+template <> struct Unsigned<int64_t> { using type = uint64_t; };
+
+// HALO_SMEM: the haloed tile lives in shared memory and a neighbour is
+// read at s[h + delta[k]].  Otherwise only the interior lives there and a
+// neighbour in the halo (bit k of the cell's halo mask) is read from the
+// input in device memory, where the frozen halo already is.
+template <typename T, int CPT, bool HALO_SMEM>
 __global__ void __launch_bounds__(kMaxThreads)
-solve_tiles_kernel(const int32_t* __restrict__ sub_h,
+solve_tiles_kernel(const T* __restrict__ sub_h,
                    const int32_t* __restrict__ flags,
-                   int32_t* __restrict__ out, int32_t* __restrict__ iters,
+                   T* __restrict__ out, int32_t* __restrict__ iters,
                    int t0, int t1, int t2, int max_iters) {
-  extern __shared__ int32_t s[];
-  __shared__ int delta[14];
+  using U = typename Unsigned<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);
+  __shared__ int delta[14];   // haloed-index step of offset k
+  __shared__ int idelta[14];  // interior-index step of offset k
   const int h1 = t1 + 2, h2 = t2 + 2;
   const int hsz = (t0 + 2) * h1 * h2;
   const int elems = t0 * t1 * t2;
   const int plane = t1 * t2;
   const int64_t tile = blockIdx.x;
 
-  const int32_t* src = sub_h + tile * hsz;
-  for (int i = threadIdx.x; i < hsz; i += blockDim.x) s[i] = src[i];
+  const T* src = sub_h + tile * hsz;
+  if constexpr (HALO_SMEM) {
+    for (int i = threadIdx.x; i < hsz; i += blockDim.x) s[i] = src[i];
+  } else {
+    for (int i = threadIdx.x; i < elems; i += blockDim.x) {
+      const int a = i / plane;
+      const int r = i - a * plane;
+      const int b = r / t2;
+      s[i] = src[((a + 1) * h1 + b + 1) * h2 + (r - b * t2) + 1];
+    }
+  }
   if (threadIdx.x < 14) {
     const int k = threadIdx.x;
     delta[k] = (kOff[k][0] * h1 + kOff[k][1]) * h2 + kOff[k][2];
+    idelta[k] = (kOff[k][0] * t1 + kOff[k][1]) * t2 + kOff[k][2];
   }
 
-  // cell[j] = (haloed index << 14) | flags; 0 marks "nothing to relax"
+  // cell[j] = (haloed index << 14) | flags; 0 marks "nothing to relax";
+  // halo[j]: the set flag bits whose neighbour lies in the halo
   uint32_t cell[CPT];
+  uint32_t halo[HALO_SMEM ? 1 : CPT];
 #pragma unroll
   for (int j = 0; j < CPT; ++j) {
     const int i = threadIdx.x + j * blockDim.x;
     cell[j] = 0;
+    if constexpr (!HALO_SMEM) halo[j] = 0;
     if (i < elems) {
       const uint32_t f = (uint32_t)flags[tile * elems + i] & kFlagMask;
       if (f) {
@@ -107,6 +157,16 @@ solve_tiles_kernel(const int32_t* __restrict__ sub_h,
         const int c = r - b * t2;
         const uint32_t h = (uint32_t)(((a + 1) * h1 + b + 1) * h2 + c + 1);
         cell[j] = (h << kFlagBits) | f;
+        if constexpr (!HALO_SMEM) {
+          for (int k = 0; k < 14; ++k) {
+            const int na = a + kOff[k][0], nb = b + kOff[k][1],
+                      nc = c + kOff[k][2];
+            if (na < 0 || na >= t0 || nb < 0 || nb >= t1 || nc < 0 ||
+                nc >= t2)
+              halo[j] |= 1u << k;
+          }
+          halo[j] &= f;
+        }
       }
     }
   }
@@ -114,21 +174,27 @@ solve_tiles_kernel(const int32_t* __restrict__ sub_h,
 
   int it = 0, last = 0;
   while (true) {
-    int32_t nv[CPT];
+    T nv[CPT];
     int moved = 0;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       nv[j] = 0;
       if (cell[j]) {
         const int h = (int)(cell[j] >> kFlagBits);
+        const int i = threadIdx.x + j * blockDim.x;
         uint32_t f = cell[j] & kFlagMask;
-        const int32_t cur = s[h];
-        int32_t m = cur;
+        T cur;
+        if constexpr (HALO_SMEM) cur = s[h];
+        else cur = s[i];
+        T m = cur;
         while (f) {
           const int k = __ffs(f) - 1;
           f &= f - 1;
-          const int32_t cand = s[h + delta[k]] + (k < 7 ? 1 : 0);
-          m = max(m, cand);
+          T v;
+          if constexpr (HALO_SMEM) v = s[h + delta[k]];
+          else v = ((halo[j] >> k) & 1u) ? src[h + delta[k]] : s[i + idelta[k]];
+          const T cand = (T)((U)v + (U)(k < 7 ? 1 : 0));
+          m = cand > m ? cand : m;
         }
         nv[j] = m;
         moved |= (m != cur);
@@ -137,7 +203,10 @@ solve_tiles_kernel(const int32_t* __restrict__ sub_h,
     __syncthreads();  // every read of this sweep is done
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
-      if (cell[j]) s[cell[j] >> kFlagBits] = nv[j];
+      if (cell[j]) {
+        if constexpr (HALO_SMEM) s[cell[j] >> kFlagBits] = nv[j];
+        else s[threadIdx.x + j * blockDim.x] = nv[j];
+      }
     }
     ++it;
     const int any = __syncthreads_or(moved);
@@ -146,29 +215,82 @@ solve_tiles_kernel(const int32_t* __restrict__ sub_h,
     if (it >= max_iters) break;
   }
 
-  int32_t* dst = out + tile * elems;
+  T* dst = out + tile * elems;
   for (int i = threadIdx.x; i < elems; i += blockDim.x) {
-    const int a = i / plane;
-    const int r = i - a * plane;
-    const int b = r / t2;
-    const int c = r - b * t2;
-    dst[i] = s[((a + 1) * h1 + b + 1) * h2 + c + 1];
+    if constexpr (HALO_SMEM) {
+      const int a = i / plane;
+      const int r = i - a * plane;
+      const int b = r / t2;
+      const int c = r - b * t2;
+      dst[i] = s[((a + 1) * h1 + b + 1) * h2 + c + 1];
+    } else {
+      dst[i] = s[i];
+    }
   }
   if (threadIdx.x == 0) iters[tile] = last;
 }
 
-template <int CPT>
-cudaError_t launch(const int32_t* sub_h, const int32_t* flags, int32_t* out,
+template <typename T, int CPT, bool HALO_SMEM>
+cudaError_t launch(const T* sub_h, const int32_t* flags, T* out,
                    int32_t* iters, int batch, int t0, int t1, int t2,
                    int max_iters, int threads, size_t smem,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      solve_tiles_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      solve_tiles_kernel<T, CPT, HALO_SMEM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  solve_tiles_kernel<CPT><<<batch, threads, smem, stream>>>(
+  solve_tiles_kernel<T, CPT, HALO_SMEM><<<batch, threads, smem, stream>>>(
       sub_h, flags, out, iters, t0, t1, t2, max_iters);
   return cudaGetLastError();
+}
+
+template <typename T, bool HALO_SMEM>
+cudaError_t launch_cpt(long long cpt, const T* s, const int32_t* f, T* o,
+                       int32_t* n, int b, int a0, int a1, int a2, int mi,
+                       int threads, size_t smem, cudaStream_t st) {
+  if (cpt <= 1) return launch<T, 1, HALO_SMEM>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
+  if (cpt <= 2) return launch<T, 2, HALO_SMEM>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
+  if (cpt <= 4) return launch<T, 4, HALO_SMEM>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
+  if (cpt <= 8) return launch<T, 8, HALO_SMEM>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
+  if (cpt <= 16) return launch<T, 16, HALO_SMEM>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
+  if (cpt <= 32) return launch<T, 32, HALO_SMEM>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
+  if (cpt <= 64) return launch<T, 64, HALO_SMEM>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
+  return cudaErrorInvalidValue;
+}
+
+// Shared memory a block may use, less the static delta tables.
+constexpr size_t kSmemLimit = 232448 - 1024;
+
+template <typename T>
+int solve_tiles(const void* sub_h, const void* flags, void* out, void* iters,
+                long long batch, long long t0, long long t1, long long t2,
+                long long max_iters, void* stream) {
+  const long long elems = t0 * t1 * t2;
+  const long long hsz = (t0 + 2) * (t1 + 2) * (t2 + 2);
+  if (batch == 0) return 0;
+  if (hsz >= (1LL << 18)) return (int)cudaErrorInvalidValue;
+  const size_t smem_halo = (size_t)hsz * sizeof(T);
+  const size_t smem_int = (size_t)elems * sizeof(T);
+  int threads = (int)((elems + 31) / 32 * 32);
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  const long long cpt = (elems + threads - 1) / threads;
+  const int mi = (int)(max_iters < 0x7fffffff ? max_iters : 0x7fffffff);
+  auto* s = static_cast<const T*>(sub_h);
+  auto* f = static_cast<const int32_t*>(flags);
+  auto* o = static_cast<T*>(out);
+  auto* n = static_cast<int32_t*>(iters);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int b = (int)batch, a0 = (int)t0, a1 = (int)t1, a2 = (int)t2;
+  if (smem_halo <= kSmemLimit)
+    return (int)launch_cpt<T, true>(cpt, s, f, o, n, b, a0, a1, a2, mi,
+                                    threads, smem_halo, st);
+  // int32 tiles of the plan always fit with their halo
+  if constexpr (sizeof(T) == 8) {
+    if (smem_int <= kSmemLimit)
+      return (int)launch_cpt<T, false>(cpt, s, f, o, n, b, a0, a1, a2, mi,
+                                       threads, smem_int, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---- 2. whole-field band sweep
@@ -232,32 +354,17 @@ int lopc_solve_tiles(const void* sub_h, const void* flags, void* out,
                      void* iters, long long batch, long long t0,
                      long long t1, long long t2, long long max_iters,
                      void* stream) {
-  const long long elems = t0 * t1 * t2;
-  const long long hsz = (t0 + 2) * (t1 + 2) * (t2 + 2);
-  const size_t smem = (size_t)hsz * sizeof(int32_t);
-  if (batch == 0) return 0;
-  if (hsz >= (1LL << 18) || smem > 232448 - 1024)
-    return (int)cudaErrorInvalidValue;
-  int threads = (int)((elems + 31) / 32 * 32);
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const long long cpt = (elems + threads - 1) / threads;
-  const int mi = (int)(max_iters < 0x7fffffff ? max_iters : 0x7fffffff);
-  auto* s = static_cast<const int32_t*>(sub_h);
-  auto* f = static_cast<const int32_t*>(flags);
-  auto* o = static_cast<int32_t*>(out);
-  auto* n = static_cast<int32_t*>(iters);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int b = (int)batch, a0 = (int)t0, a1 = (int)t1, a2 = (int)t2;
-  cudaError_t err;
-  if (cpt <= 1) err = launch<1>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
-  else if (cpt <= 2) err = launch<2>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
-  else if (cpt <= 4) err = launch<4>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
-  else if (cpt <= 8) err = launch<8>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
-  else if (cpt <= 16) err = launch<16>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
-  else if (cpt <= 32) err = launch<32>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
-  else if (cpt <= 64) err = launch<64>(s, f, o, n, b, a0, a1, a2, mi, threads, smem, st);
-  else err = cudaErrorInvalidValue;
-  return (int)err;
+  return solve_tiles<int32_t>(sub_h, flags, out, iters, batch, t0, t1, t2,
+                              max_iters, stream);
+}
+
+// The same with an int64 state: sub_h and out int64.
+int lopc_solve_tiles64(const void* sub_h, const void* flags, void* out,
+                       void* iters, long long batch, long long t0,
+                       long long t1, long long t2, long long max_iters,
+                       void* stream) {
+  return solve_tiles<int64_t>(sub_h, flags, out, iters, batch, t0, t1, t2,
+                              max_iters, stream);
 }
 
 // flags (xp, y, z) uint32 bits in int32 (xp a multiple of 8), cur, snap,

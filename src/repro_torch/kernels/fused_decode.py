@@ -7,9 +7,14 @@ ordered-int subbin add.  Covers f32 and f64 outputs and every stream
 word width.  Without a subbin stream (``sub_bitmap = sub_packed =
 None``, the plain path's containers) the subbin is 0 and the kernel's
 no-subbin instantiation runs.
+
+``dequantize_ff32`` (port of ``repro.kernels.fused_decode.dequantize_ff32``)
+is the FF32 contract's decode: ``base = (f32(b) - 0.5) * eps32``, plus the
+subbin in int32 ordered space, back to f32, as one elementwise kernel.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..codecs.bitshuffle import bitunshuffle
@@ -18,6 +23,7 @@ from ..codecs.transforms import delta_decode, width, zigzag_decode
 from ..core.floatbits import float_to_ordered, int_dtype_for, ordered_to_float
 from ..core.quantize import decode_base
 from . import _lib
+from .ref import dequantize_ff32_ref
 
 
 def _expand_ints(bitmap, packed, n_tiles: int, tile_elems: int,
@@ -95,4 +101,23 @@ def decode_tiles_fused(bitmap, packed, sub_bitmap, sub_packed, eps,
               sub_packed, eps, out, batch, tile_elems, width(packed.dtype),
               width(sub_packed.dtype), cpts[0], cpts[1], bits)
     _lib.LAUNCHES["decode_tiles_fused"] += 1
+    return out
+
+
+def dequantize_ff32(bins: torch.Tensor, subbins: torch.Tensor,
+                    eps32) -> torch.Tensor:
+    """int32 bins and subbins of one shape -> f32 values of that shape:
+    the CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
+    if not bins.is_cuda:
+        return dequantize_ff32_ref(bins, subbins, eps32)
+    if bins.dtype != torch.int32 or subbins.dtype != torch.int32:
+        raise ValueError("dequantize_ff32 takes int32 bins and subbins")
+    if bins.shape != subbins.shape:
+        raise ValueError("bins and subbins must have one shape")
+    bins, subbins = bins.contiguous(), subbins.contiguous()
+    _lib.require_cuda(bins, subbins)
+    out = torch.empty(bins.shape, dtype=torch.float32, device=bins.device)
+    _lib.call("ff32", "lopc_dequantize_ff32", bins, subbins, out, bins.numel(),
+              float(np.float32(eps32)))
+    _lib.LAUNCHES["dequantize_ff32"] += 1
     return out

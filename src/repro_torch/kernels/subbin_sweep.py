@@ -1,15 +1,22 @@
 """Subbin fixed-point solves (port of ``repro.kernels.subbin_sweep``).
 
 ``solve_tiles_blockwise`` (the tiled engine's solve): every tile of a
-(B, t0+2, t1+2, t2+2) haloed int32 batch is relaxed, halos held fixed,
-with synchronous (Jacobi) sweeps
+(B, t0+2, t1+2, t2+2) haloed batch is relaxed, halos held fixed, with
+synchronous (Jacobi) sweeps
 
     cur = max(cur, max_k[flag bit k](nbr_k + tie_k))
 
 until no interior cell moves or ``tile_elems + 2`` sweeps ran.  Returns
 the interiors and each tile's last-changed sweep index (0 for a tile
-already at its fixed point).  The subbin lane is non-negative, which
-both versions rely on (the reference's ``max(new, 0)`` is then a no-op).
+already at its fixed point).  Two lanes: int32 subbins (non-negative),
+and the adaptive path's ordered-space state, int32 for f32 fields and
+int64 for f64 fields.  The reference carries that state biased and
+unsigned with 0 as its neutral; the port carries the signed ordered int
+itself, whose neutral is ``iinfo.min``, so a max only ever takes a
+candidate whose flag bit is set (the reference's ``max(new, 0)`` with a
+signed state would raise every negative value to 0).  The f32 lane runs
+the int32 kernel; the int64 kernel counts as
+``solve_tiles_blockwise_64``.
 
 ``solve_blockwise`` (the whole-field v1 solve): X is cut into ``BAND``-row
 bands.  One global sweep relaxes every band to its own fixed point with
@@ -46,7 +53,7 @@ def solve_tiles_blockwise_plain(sub_h: torch.Tensor, flags: torch.Tensor):
             nsub = full[:, 1 + ox : h0 - 1 + ox, 1 + oy : h1 - 1 + oy,
                         1 + oz : h2 - 1 + oz]
             cand = nsub + int(_TIES3[k])
-            new = torch.maximum(new, torch.where(need[k], cand, 0))
+            new = torch.where(need[k], torch.maximum(new, cand), new)
         return new
 
     int0 = sub_h[:, 1:-1, 1:-1, 1:-1]
@@ -64,14 +71,15 @@ def solve_tiles_blockwise_plain(sub_h: torch.Tensor, flags: torch.Tensor):
 
 
 def solve_tiles_blockwise(sub_h: torch.Tensor, flags: torch.Tensor):
-    """Solve a haloed tile batch -> (interiors (B, t0, t1, t2) int32,
-    last-changed sweep (B,) int32): the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+    """Solve a haloed tile batch -> (interiors (B, t0, t1, t2) in
+    ``sub_h``'s dtype (int32 or int64), last-changed sweep (B,) int32):
+    the CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
     if not sub_h.is_cuda:
         return solve_tiles_blockwise_plain(sub_h, flags)
     _lib.require_cuda(sub_h, flags)
-    if sub_h.dtype != torch.int32 or flags.dtype != torch.int32:
-        raise ValueError("solve_tiles_blockwise takes int32 subbins and flags")
+    if sub_h.dtype not in (torch.int32, torch.int64) or flags.dtype != torch.int32:
+        raise ValueError("solve_tiles_blockwise takes int32/int64 states and "
+                         "int32 flags")
     if sub_h.dim() != 4 or flags.dim() != 4:
         raise ValueError("solve_tiles_blockwise takes 4-D tile batches")
     b, h0, h1, h2 = sub_h.shape
@@ -79,12 +87,14 @@ def solve_tiles_blockwise(sub_h: torch.Tensor, flags: torch.Tensor):
     if tuple(flags.shape) != (b, *t) or min(t) < 1:
         raise ValueError(f"flags {tuple(flags.shape)} do not fit sub_h "
                          f"{tuple(sub_h.shape)}")
-    out = torch.empty((b, *t), dtype=torch.int32, device=sub_h.device)
+    out = torch.empty((b, *t), dtype=sub_h.dtype, device=sub_h.device)
     iters = torch.empty((b,), dtype=torch.int32, device=sub_h.device)
     max_iters = t[0] * t[1] * t[2] + 2
-    _lib.call("subbin_sweep", "lopc_solve_tiles", sub_h, flags, out, iters,
-              b, *t, max_iters)
-    _lib.LAUNCHES["solve_tiles_blockwise"] += 1
+    wide = sub_h.dtype == torch.int64
+    _lib.call("subbin_sweep", "lopc_solve_tiles64" if wide else "lopc_solve_tiles",
+              sub_h, flags, out, iters, b, *t, max_iters)
+    _lib.LAUNCHES["solve_tiles_blockwise_64" if wide
+                  else "solve_tiles_blockwise"] += 1
     return out, iters
 
 

@@ -275,6 +275,29 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(out.stdout.strip()) >= 20
 
 
+def test_every_port_module_imports_first():
+    """Each module of the port imports as the first one of the package
+    (a script on the card may start from any of them): no import cycle
+    depends on another module having been imported before."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,\n"
+        "                                                 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    for k in [k for k in sys.modules if k.startswith('repro_torch')]:\n"
+        "        del sys.modules[k]\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n"
+    )
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "HOME": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 30
+
+
 def test_entry_points_refuse_to_run_on_cpu_unasked():
     from repro_torch import engine
 
@@ -286,14 +309,36 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
     blob = engine.compress(x, 1e-2, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         engine.decompress(blob)
+    # the census, the ladder and the FF32 domain check upload numpy
+    # inputs to the CUDA device unless asked for the CPU
+    from repro_torch import tda
+    from repro_torch.kernels import ops
+    from repro_torch.tda import adaptive
+
+    layout = engine.CompressionPlan().layout_for(x.shape)
+    x3 = x.reshape(layout.canonical)
+    for call in (lambda **kw: tda.critical_signature(x, **kw),
+                 lambda **kw: tda.classify_critical_points(x, **kw),
+                 lambda **kw: tda.critical_point_errors(x, x, **kw),
+                 lambda **kw: tda.local_order_violations(x, x, **kw),
+                 lambda **kw: tda.ladder_indices(x, layout, 0.1, **kw),
+                 lambda **kw: adaptive.tile_relief(x3, layout, **kw),
+                 lambda **kw: adaptive.tile_noise_scale(x3, layout, **kw),
+                 lambda **kw: adaptive.critical_counts(x, layout, **kw),
+                 lambda **kw: adaptive.critical_tiles(x, layout, **kw),
+                 lambda **kw: adaptive.tighten_ladder(
+                     x, layout, np.zeros(layout.n_tiles, np.uint8), 0.1, **kw),
+                 lambda **kw: ops.ff32_domain_ok(x, 0.1, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        call(device="cpu")
 
 
 def test_arguments_outside_the_slice_name_their_roadmap_row():
     from repro_torch import engine
 
     x = np.linspace(0, 1, 64, dtype=np.float32).reshape(8, 8)
-    for kw, row in [({"adaptive_eb": "tda"}, "row 9"),
-                    ({"put": lambda a: a}, "row 13"),
+    for kw, row in [({"put": lambda a: a}, "row 13"),
                     ({"group_cb": print}, "row 12")]:
         with pytest.raises(NotImplementedError, match=row):
             engine.compress_many([x], 1e-2, device="cpu", **kw)
@@ -301,18 +346,10 @@ def test_arguments_outside_the_slice_name_their_roadmap_row():
     with pytest.raises(NotImplementedError, match="row 10"):
         engine.decompress_roi(chain, (slice(0, 2),) * 3, device="cpu")
     from repro_torch import core
-    from repro_torch.kernels import ops
 
     with pytest.raises(NotImplementedError, match="row 10"):
         core.decompress(chain, device="cpu")
-    with pytest.raises(NotImplementedError, match="items 6-7"):
-        ops.quantize_ff32(torch.zeros(4), 1e-2)
-    with pytest.raises(NotImplementedError, match="items 6-7"):
-        ops.dequantize_ff32(torch.zeros(4, dtype=torch.int32),
-                            torch.zeros(4, dtype=torch.int32), 1e-2)
-    with pytest.raises(NotImplementedError, match="items 6-7"):
-        ops.ff32_domain_ok(np.zeros(4, np.float32), 1e-2)
-    # the reference's own argument error comes before the row-9 guard
+    # the reference's own argument errors
     with pytest.raises(ValueError, match="requires preserve_order=True"):
         engine.compress(x, 1e-2, preserve_order=False, adaptive_eb="tda",
                         device="cpu")
