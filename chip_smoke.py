@@ -92,17 +92,37 @@ Phases; any failure exits nonzero before the last line is printed:
    64-bit lane on the 1-D tile, whose haloed state exceeds shared
    memory), and an adaptive f64 field whose subbin sections are 8 bytes
    wide (the encode and the decode kernel at w=64; its container must
-   equal the CPU's).
+   equal the CPU's).  Bounds within 2x of the smallest normal: a field
+   of 4 * tiny * N(0, 1) cells at eb = 1.5 * tiny, f32 and f64,
+   order-preserving and plain, and at eb = 4 * tiny, plain, must give
+   the CPU's containers and decodes (the quantize and decode kernels
+   flush subnormals as XLA does), and the FF32 pair at eps 1.5 * tiny
+   must equal its plain version.  A
+   64x64x256 field falling in linear index inside one bin (one chain
+   through 4x4x4 tiles) must take four halo rounds or more, solve fewer
+   tiles in its last round than in its first, keep the order and decode
+   on the CPU to the same values; its round-1 and round-2 tile batches
+   join phase 4.  Every compress logs the tiles solved per halo round.
 4. Kernels against their plain PyTorch versions on the card, on the very
    operands the runs above handed each kernel (recorded per signature):
    bit equality required (the band solve: equal subbins and equal global
    sweep counts, on ISABEL's whole flags, on the first 32 X-rows of both
-   fields' flags and on a 128x4x4 chain that descends in X; the tile
-   solve's ordered-space lanes on ISABEL-adaptive's batches (32-bit),
+   fields' flags, on a 128x4x4 chain that descends in X, on an
+   8x40x150 serpentine whose one chain winds through the whole Y x Z
+   plane, on a 64x40x150 front that reaches one band more each
+   global sweep, and on a chain of 8191 hops inside one tile, under the
+   kernel's pass cap and under a cap of 8 passes, which must add
+   launches; the tile solve on the round-1 and round-2 batches of each run,
+   round 2 holding only the active tiles, the cross-tile ramp's among
+   them; its ordered-space lanes on ISABEL-adaptive's batches (32-bit),
    Miranda-adaptive's and the 1-D f64 field's (64-bit); the FF32 pair at
-   ISABEL's size).  Times each kernel by its device time per
-   launch (torch.profiler) and the plain version with CUDA events, and
-   computes each kernel's bound from the operands.
+   ISABEL's size and at eps 1.5 tiny).  Times each kernel by its device
+   time per launch (torch.profiler) and the plain version with CUDA
+   events, and computes each kernel's bound from the operands.  The band
+   solve is also timed on Miranda's whole flags (CUDA events, launches
+   per global sweep), and each lane of the tile solve over every round of
+   one main-path resident solve (CUDA events per round, with the round's
+   tiles and bound).
 5. Determinism: the 24 snapshot cases of
    ``benchmarks/baselines/determinism_hashes.json`` compressed on the card
    must hash to the manifest (CPU <-> GPU byte identity), and their
@@ -232,6 +252,12 @@ class Recorder:
         # set while an adaptive path runs: its int32 tile solves are the
         # ordered-space lane, recorded apart from the subbin lane's
         self.ordered = False
+        # a label that keeps a run's tile solves apart from the others'
+        self.tag = ""
+        # the tile solve's round within the running resident solve, and
+        # the first resident solve's operands per lane and tag
+        self.solve_round = 0
+        self.solves: dict[tuple, tuple] = {}
         targets = [(device_mod, a) for a in TILED_KERNELS] + [
             (v1_mods[0], "solve_blockwise"), (v1_mods[1], "bitshuffle_u32"),
             (v1_mods[1], "bitunshuffle_u32"), (v1_mods[2], "rze_bitmap_u32"),
@@ -239,23 +265,47 @@ class Recorder:
         for mod, attr in targets:
             self.real[attr] = getattr(mod, attr)
             setattr(mod, attr, self._wrap(attr, getattr(mod, attr)))
+        self.real["resident_solve"] = device_mod.resident_solve
+        device_mod.resident_solve = self._wrap_solve(device_mod.resident_solve)
+
+    def lane(self, state) -> str:
+        if state is not None and state.element_size() == 8:
+            return "solve_tiles_blockwise_64"
+        return ("solve_tiles_blockwise_ordered32" if self.ordered
+                else "solve_tiles_blockwise")
+
+    def _wrap_solve(self, real):
+        def wrapped(flags, idx, mask, max_rounds, adjacency, sub0=None,
+                    n_real=None):
+            self.solve_round = 0
+            self.solves.setdefault((self.lane(sub0), self.tag), (
+                flags, idx, mask, max_rounds, adjacency,
+                None if sub0 is None else sub0.clone(), n_real))
+            return real(flags, idx, mask, max_rounds, adjacency=adjacency,
+                        sub0=sub0, n_real=n_real)
+        return wrapped
 
     def _wrap(self, name, real):
         def wrapped(*args):
             kname = name
+            extra = ()
             if name == "decode_tiles_fused" and args[2] is None:
                 # a decode without subbin arrays is its own kernel
                 kname = "decode_tiles_fused_nosub"
             elif name == "solve_tiles_blockwise":
-                if args[0].element_size() == 8:
-                    kname = "solve_tiles_blockwise_64"
-                elif self.ordered:
-                    kname = "solve_tiles_blockwise_ordered32"
-            key = (kname,) + tuple(
+                kname = self.lane(args[0])
+                self.solve_round += 1
+                if self.solve_round > 2:  # round 1 and round 2 (live halos)
+                    return real(*args)
+                # the batch of round 2 holds only the active tiles
+                extra = (self.tag, f"round {self.solve_round}")
+            shapes = tuple(
                 (tuple(a.shape), str(a.dtype)) if hasattr(a, "shape") else a
                 for a in args)
-            kept = self.calls.setdefault(key, [])
-            if len(kept) < 2:  # solve: round 1 and round 2 (live halos)
+            if extra:  # one key for every batch size
+                shapes = tuple((sh[1:], dt) for sh, dt in shapes)
+            kept = self.calls.setdefault((kname,) + extra + shapes, [])
+            if len(kept) < 2:
                 kept.append(args)
             return real(*args)
         return wrapped
@@ -385,6 +435,17 @@ def download_ratio(x, blob, counts: dict, eng, executor, info: dict,
                 staged_d2h_ratio=executor.TRANSFER_COUNTS["bytes_d2h"] / len(blob))
 
 
+def solved_tiles(field: str) -> list:
+    """The tiles the last compress's resident solve gathered and solved
+    in each halo round (round 1: every real tile; later rounds: the
+    tiles whose halo reads a tile that moved), logged."""
+    from repro_torch.engine import device as device_mod
+
+    solved = list(device_mod.SOLVED_TILES[-1])
+    log(f"{field} compress: tiles solved per halo round {solved}")
+    return solved
+
+
 def main_path(name, shape, dtype, eng, executor, kernels, topology,
               make_field, launches: dict):
     """One full-size compress -> decompress through the entry points,
@@ -406,6 +467,7 @@ def main_path(name, shape, dtype, eng, executor, kernels, topology,
     launches[f"{field} compress"] = dict(kernels.LAUNCHES)
     rounds = executor.TRANSFER_COUNTS["d2h_round"]
     counts = dict(executor.TRANSFER_COUNTS)
+    solved = solved_tiles(field)
     kernels.reset_launches()
     t0 = time.perf_counter()
     y = eng.decompress(blob)
@@ -426,6 +488,7 @@ def main_path(name, shape, dtype, eng, executor, kernels, topology,
         "ratio": x.nbytes / len(blob), "cold_compress_s": cold_c,
         "cold_decompress_s": cold_d, "generate_s": gen_s,
         "halo_rounds": rounds, "n_sweeps": stats.n_sweeps,
+        "solved_tiles_per_round": solved,
     }
     download_ratio(x, blob, counts, eng, executor, info)
     return (x, blob, y), info
@@ -672,6 +735,7 @@ def adaptive_path(name, shape, dtype, eng, executor, kernels, topology, tda,
     rec.ordered = False
     launches[f"{field} compress"] = dict(kernels.LAUNCHES)
     rounds = executor.TRANSFER_COUNTS["d2h_round"]
+    solved = solved_tiles(field)
     kernels.reset_launches()
     t0 = time.perf_counter()
     y = eng.decompress(blob)
@@ -711,6 +775,7 @@ def adaptive_path(name, shape, dtype, eng, executor, kernels, topology, tda,
             "rungs": rungs.tolist(), "tighten_raised": raised[0],
             "section_words": list(c.stream_words()),
             "halo_rounds": rounds, "n_sweeps": stats.n_sweeps,
+            "solved_tiles_per_round": solved,
             "cold_compress_s": cold_c, "cold_decompress_s": cold_d,
             "topology_checks_s": checks_s}
     log(f"full size {field}: rungs (loosest first) {rungs.tolist()} "
@@ -1010,20 +1075,77 @@ def profile(name, shape, dtype, eng, make_field, **kw) -> dict:
 
 # ---------------------------------------------------------- kernel phase
 
-def bound_ms(name, args, out, relaxations: int = 0) -> tuple[float, str]:
+def tiny_bound_runs(eng, kernels, ops) -> None:
+    """Bounds within 2x of the smallest normal: a field of 4 * tiny *
+    N(0, 1) cells (about a fifth subnormal) at eb = 1.5 * tiny, f32 and
+    f64, order-preserving and plain (the fused value encode for f32):
+    the container and the decode must equal the CPU path's, which holds
+    the quantize and decode kernels (3, 3' and 4) to the reference's
+    subnormal flushes; the same at eb = 4 * tiny, where kernel 4 flushes
+    only the cells; and the FF32 pair (6, 7) at eps 1.5 * tiny against
+    its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(0)
+    for dt in (np.float32, np.float64):
+        tiny = float(np.finfo(dt).tiny)
+        x = (4 * tiny * rng.standard_normal((32, 64, 128))).astype(dt)
+        for eb, kw, need in (
+                (1.5 * tiny, {}, ("solve_tiles_blockwise", "decode_tiles_fused")),
+                (1.5 * tiny, {"preserve_order": False, "encode_path": "fused"},
+                 ("encode_values_fused" if dt == np.float32
+                  else "encode_ints_fused", "decode_tiles_fused_nosub")),
+                (4 * tiny, {"preserve_order": False, "encode_path": "fused"},
+                 ("encode_values_fused" if dt == np.float32
+                  else "encode_ints_fused", "decode_tiles_fused_nosub"))):
+            kernels.reset_launches()
+            blob = eng.compress(x, eb, mode="abs", **kw)
+            y = eng.decompress(blob)
+            got = dict(kernels.LAUNCHES)
+            for k in need:
+                check(got.get(k, 0) > 0, f"tiny bound {np.dtype(dt).name} "
+                      f"eb {eb:.6g} {kw}: {k} never launched")
+            check(blob == eng.compress(x, eb, mode="abs", device="cpu", **kw),
+                  f"tiny bound {np.dtype(dt).name} eb {eb:.6g} {kw}: the "
+                  "container differs from the CPU's")
+            check(y.tobytes() == eng.decompress(blob, device="cpu").tobytes(),
+                  f"tiny bound {np.dtype(dt).name} eb {eb:.6g} {kw}: the "
+                  "decode differs from the CPU's")
+        log(f"tiny bound {np.dtype(dt).name}: containers and decodes equal "
+            "the CPU's (eb 1.5 tiny order-preserving and plain, eb 4 tiny "
+            "plain)")
+    x32 = torch.from_numpy(
+        (4 * np.finfo(np.float32).tiny * rng.standard_normal(1 << 20))
+        .astype(np.float32)).cuda()
+    eps = np.float32(1.5 * np.finfo(np.float32).tiny)
+    bins = ops.quantize_ff32(x32, eps)
+    check(torch.equal(bins, ref.quantize_ff32_ref(x32, eps)),
+          "the FF32 quantize differs from its plain version at eps 1.5 tiny")
+    sub = torch.from_numpy(rng.integers(0, 3, 1 << 20).astype(np.int32)).cuda()
+    check(bits_equal(ops.dequantize_ff32(bins, sub, eps),
+                     ref.dequantize_ff32_ref(bins, sub, eps)),
+          "the FF32 dequantize differs from its plain version at eps 1.5 tiny")
+    log("tiny bound FF32: the quantize and dequantize kernels equal their "
+        "plain versions at eps 1.5 tiny")
+
+
+def bound_ms(name, args, out) -> tuple[float, str]:
     """Least time for this call's work: max(bytes / HBM rate, integer ops
     / peak rate), counting each input read once and each output written
-    once, and the work this run's data needs (for the band solve, the
-    ``relaxations`` of every band its plain version ran)."""
+    once, and the work this run's data needs."""
     import torch
 
     if name == "solve_blockwise":
         flags = args[0]
-        sub = out[0]
+        sub, sweeps = out
         nbytes = flags.nbytes + sub.nbytes
         pop = sum(int(((flags >> k) & 1).sum()) for k in range(14))
-        # a set flag bit is an add and a max in every relaxation
-        ops = float(2 * pop * relaxations)
+        # a set flag bit is an add and a max at least once per global
+        # sweep (the sweep that finds the bands at their fixed point too)
+        ops = float(2 * pop * sweeps)
     elif name in ("bitshuffle_u32", "bitunshuffle_u32"):
         nbytes = args[0].nbytes + out.nbytes
         ops = float(args[0].numel() * 32)  # one per bit
@@ -1046,9 +1168,10 @@ def bound_ms(name, args, out, relaxations: int = 0) -> tuple[float, str]:
         nbytes = sub_h.nbytes + flags.nbytes + res.nbytes + iters.nbytes
         pop = sum(((flags >> k) & 1).reshape(flags.shape[0], -1).sum(1)
                   for k in range(14))
-        # a set flag bit is an add and a max in every sweep the tile runs
-        # (its changing sweeps plus the one that finds nothing to change)
-        ops = float((2 * pop * (iters.long() + 1)).sum())
+        # a set flag bit is an add and a max once: the sweep that proves
+        # the fixed point (the sweeps before it need not visit every bit,
+        # as the frontier Jacobi shows)
+        ops = float(2 * pop.sum())
     elif name == "encode_ints_fused":
         ints = args[0]
         bitmap, words, counts = out
@@ -1086,13 +1209,16 @@ def bound_ms(name, args, out, relaxations: int = 0) -> tuple[float, str]:
 def band_cases(rec, topology, quantize) -> list:
     """Operands of the band solve's kernel-vs-plain checks: ISABEL's whole
     flags (first, the timed one), the first 32 X-rows of each field's
-    flags, and a 128x4x4 field descending in X inside one bin (one chain
-    across the whole X extent, as in the reference's test)."""
+    flags, a 128x4x4 field descending in X inside one bin (one chain
+    across the whole X extent, as in the reference's test), a serpentine,
+    a front, and a chain through all of one tile (under the kernel's pass
+    cap and under a cap of 8 passes).  Each case is (label, operands, pass
+    cap or None for the default)."""
     import torch
 
     whole = [rec.calls[k][0] for k in rec.calls if k[0] == "solve_blockwise"]
     check(len(whole) >= 2, "solve_blockwise: a full-size field was not recorded")
-    cases = [(f"whole {tuple(whole[0][0].shape)}", whole[0])]
+    cases = [(f"whole {tuple(whole[0][0].shape)}", whole[0], None)]
     # the flags of the sub-field x[:32]: its last row has no neighbour at
     # x + 1 (a bit set there would read the clamped halo of the last band,
     # which can close a cycle and never converge)
@@ -1100,12 +1226,71 @@ def band_cases(rec, topology, quantize) -> list:
     for (flags,) in whole[:2]:
         cut = flags[:32].clone()
         cut[-1] &= ~up
-        cases.append((f"first 32 X-rows of {tuple(flags.shape)}", (cut,)))
+        cases.append((f"first 32 X-rows of {tuple(flags.shape)}", (cut,), None))
     x = -torch.cumsum(torch.full((128, 4, 4), 1e-9, dtype=torch.float64,
                                  device=whole[0][0].device), dim=0)
     bins = quantize.quantize(x, 1.0)
-    cases.append(("128x4x4 chain", (topology.order_flags(bins, x),)))
+    cases.append(("128x4x4 chain", (topology.order_flags(bins, x),), None))
+    x = serpentine(8, 40, 150).to(whole[0][0].device)
+    bins = quantize.quantize(x, 1.0)
+    cases.append(("8x40x150 serpentine", (topology.order_flags(bins, x),),
+                  None))
+    # rising in X inside one bin, X-row 0 falling in Z: row 0's subbins
+    # reach one band more each global sweep, each band still until then
+    x = torch.arange(64, dtype=torch.float64)[:, None, None] * 1e-9 + torch.zeros(
+        (64, 40, 150), dtype=torch.float64)
+    x[0] = -torch.arange(150, dtype=torch.float64) * 1e-12
+    x = x.to(whole[0][0].device)
+    bins = quantize.quantize(x, 1.0)
+    cases.append(("64x40x150 front", (topology.order_flags(bins, x),), None))
+    # 8191 hops inside the one 8x16x64 tile of the middle band: a warp's
+    # lanes read before they write, so it needs some 8000 passes, beyond
+    # the kernel's cap of 4096; under a cap of 8, hundreds of launches
+    x = in_tile_chain().to(whole[0][0].device)
+    flags = topology.order_flags(quantize.quantize(x, 1.0), x)
+    cases.append(("24x16x64 in-tile chain", (flags,), None))
+    cases.append(("24x16x64 in-tile chain, cap 8 passes", (flags,), 8))
     return cases
+
+
+def in_tile_chain():
+    """(24, 16, 64) f64 field whose middle band falls along a 3-D
+    boustrophedon through all 8192 cells of the band kernel's one tile
+    there, inside one bin at eb 1 (Z forward and backward by turns, Y
+    likewise in each X-row); the other bands are a wall in another bin,
+    so the tile's X halo never moves and it has no neighbour tile."""
+    import torch
+
+    v = torch.full((24, 16, 64), 3.0, dtype=torch.float64)
+    step = 0
+    for a in range(8):
+        ys = range(16) if a % 2 == 0 else range(15, -1, -1)
+        for n, b in enumerate(ys):
+            zs = torch.arange(64) if (a * 16 + n) % 2 == 0 else torch.arange(63, -1, -1)
+            v[8 + a, b, zs] = -torch.arange(step, step + 64, dtype=torch.float64) * 1e-9
+            step += 64
+    return v
+
+
+def serpentine(x: int, y: int, z: int):
+    """(x, y, z) f64 field constant in X whose values fall along a corridor
+    winding through the whole Y x Z plane (Z forward on rows 0, 4, ...,
+    backward on rows 2, 6, ..., joined at the turns by one cell of the odd
+    row between), inside one bin at eb 1; the rest of the odd rows is a
+    wall in another bin.  Its one chain crosses the band kernel's 16 x 64
+    tiles again and again; Y and Z are not multiples of the tile."""
+    import torch
+
+    v = torch.full((y, z), 3.0, dtype=torch.float64)
+    step = 0
+    for r in range(0, y, 2):
+        cols = list(range(z)) if r % 4 == 0 else list(range(z - 1, -1, -1))
+        v[r, cols] = -torch.arange(step, step + z, dtype=torch.float64) * 1e-9
+        step += z
+        if r + 1 < y:
+            v[r + 1, cols[-1]] = -step * 1e-9
+            step += 1
+    return v.expand(x, y, z).contiguous()
 
 
 def _same(a, b) -> tuple[bool, float]:
@@ -1114,9 +1299,94 @@ def _same(a, b) -> tuple[bool, float]:
     return a == b, float(abs(a - b))  # a sweep count
 
 
-def kernel_phase(rec, launches: dict):
+def band_whole_timing(kern, args, card: str) -> dict:
+    """Miranda's whole band solve (the v1 compress's) by CUDA events: one
+    call, its launches and global sweeps, and its bound."""
     import torch
 
+    from repro_torch import kernels
+
+    kern(*args)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = kern(*args)
+    end.record()
+    torch.cuda.synchronize()
+    n = kernels.LAUNCHES["solve_blockwise"]
+    b_ms, b_by = bound_ms("solve_blockwise", args, out)
+    info = {"shape": list(args[0].shape), "ms": start.elapsed_time(end),
+            "launches": n, "sweeps": out[1], "launches_per_sweep": n / out[1],
+            "bound_ms": b_ms, "bound_by": b_by, "card": card}
+    log(f"band solve, whole {tuple(args[0].shape)}: {info['ms']:.3f} ms by "
+        f"CUDA events, {n} launches over {out[1]} global sweeps "
+        f"({info['launches_per_sweep']:.2f} per sweep), bound {b_ms:.4f} ms "
+        f"by {b_by}; card {card}")
+    return info
+
+
+def solve_rounds_timing(rec, lane: str, card: str) -> dict:
+    """Every round of the first main-path resident solve of ``lane``,
+    replayed: the kernel's time per round by CUDA events with the round's
+    tiles, then the same rounds again for their bounds."""
+    import torch
+
+    from repro_torch.engine import device as device_mod
+
+    flags, idx, mask, max_rounds, adj, sub0, n_real = rec.solves[(lane, "")]
+    real = rec.real["solve_tiles_blockwise"]
+    wrapped = device_mod.solve_tiles_blockwise
+    timed, bounds = [], []
+
+    def by_events(sub_h, fl):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(sub_h, fl)
+        end.record()
+        timed.append((sub_h.shape[0], start, end))
+        return out
+
+    def by_bound(sub_h, fl):
+        out = real(sub_h, fl)
+        bounds.append(bound_ms(lane, (sub_h, fl), out)[0])
+        return out
+
+    solve = rec.real["resident_solve"]
+    try:
+        device_mod.solve_tiles_blockwise = by_events
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        solve(flags, idx, mask, max_rounds, adjacency=adj, sub0=sub0,
+              n_real=n_real)
+        end.record()
+        torch.cuda.synchronize()
+        device_mod.solve_tiles_blockwise = by_bound
+        solve(flags, idx, mask, max_rounds, adjacency=adj, sub0=sub0,
+              n_real=n_real)
+    finally:
+        device_mod.solve_tiles_blockwise = wrapped
+    rounds = [{"tiles": n, "ms": a.elapsed_time(b), "bound_ms": bd}
+              for (n, a, b), bd in zip(timed, bounds)]
+    info = {"solve_ms": start.elapsed_time(end), "launches": len(rounds),
+            "kernel_ms": sum(r["ms"] for r in rounds),
+            "bound_ms": sum(r["bound_ms"] for r in rounds),
+            "per_round": rounds, "card": card}
+    log(f"{lane}: one resident solve {info['solve_ms']:.3f} ms by CUDA "
+        f"events, {len(rounds)} launches, kernel {info['kernel_ms']:.3f} ms "
+        f"against a bound of {info['bound_ms']:.4f} ms; (tiles, ms) per "
+        "round: " + ", ".join(f"({r['tiles']}, {r['ms']:.3f})"
+                               for r in rounds) + f"; card {card}")
+    return info
+
+
+def kernel_phase(rec, launches: dict, card: str):
+    import torch
+
+    from repro_torch import kernels
     from repro_torch.core import quantize, topology
     from repro_torch.kernels import (
         bitshuffle_kernel,
@@ -1150,8 +1420,8 @@ def kernel_phase(rec, launches: dict):
                              ref.bitunshuffle_ref),
         "rze_bitmap_u32": (rze_kernel.rze_bitmap_u32, ref.rze_bitmap_ref),
     }
-    # the plain band solve's relaxations of all bands (= the kernel's
-    # launches that do work), for the band solve's operation count
+    # the plain band solve's relaxations of all bands (its Jacobi
+    # launches, the PR-13 kernel's launches that did work), logged
     relaxations = [0]
     relax_bands = subbin_sweep._relax_bands
 
@@ -1160,6 +1430,7 @@ def kernel_phase(rec, launches: dict):
         return relax_bands(*a)
 
     subbin_sweep._relax_bands = counted_relax
+    max_passes = subbin_sweep.BAND_MAX_PASSES
     rows = []
     for name, (source, replaces) in KERNELS.items():
         kern, plain = impl[name]
@@ -1170,9 +1441,17 @@ def kernel_phase(rec, launches: dict):
         else:
             cases = [(repr(k[1:]), args) for k in keys for args in rec.calls[k]]
         checks, err, work = [], 0.0, {}
-        for label, args in cases:
+        for label, args, *cap in cases:
             relaxations[0] = 0
-            got, want = kern(*args), plain(*args)
+            kernels.reset_launches()
+            if cap and cap[0]:
+                subbin_sweep.BAND_MAX_PASSES = cap[0]
+            try:
+                got = kern(*args)
+            finally:
+                subbin_sweep.BAND_MAX_PASSES = max_passes
+            n_launch = sum(kernels.LAUNCHES.values())
+            want = plain(*args)
             torch.cuda.synchronize()
             work[label] = relaxations[0]
             pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -1180,12 +1459,20 @@ def kernel_phase(rec, launches: dict):
             e = max(_same(a, b)[1] for a, b in pairs)
             err = max(err, e)
             checks.append({"signature": label, "match": same, "max_abs_err": e,
+                           "launches": n_launch,
                            **({"sweeps": got[1], "relaxations": work[label]}
                               if name == "solve_blockwise" else {})})
             check(same, f"{name}: kernel differs from plain on {label} "
                         f"(max abs err {e})")
+        if name == "solve_blockwise":
+            # the cap of 8 passes must have stopped the chain's tile
+            n_cap = {c["signature"]: c["launches"] for c in checks
+                     if "in-tile chain" in c["signature"]}
+            check(n_cap["24x16x64 in-tile chain, cap 8 passes"]
+                  > n_cap["24x16x64 in-tile chain"],
+                  f"solve_blockwise: a cap of 8 passes added no launch {n_cap}")
         # time the first operands: the main path's f32 field
-        label, args = cases[0]
+        label, args = cases[0][:2]
         out = kern(*args)
         extra = {}
         if name == "solve_blockwise":
@@ -1195,7 +1482,10 @@ def kernel_phase(rec, launches: dict):
             traced = device_ms(lambda: kern(*args), 1, "band_sweep")
             extra = {"relaxations": work[label], "sweeps": out[1],
                      "band_kernel_ms_per_launch": traced and traced[0],
-                     "band_launches_per_solve": traced and traced[1]}
+                     "band_launches_per_solve": traced and traced[1],
+                     "miranda_whole": band_whole_timing(kern, max(
+                         (rec.calls[k][0] for k in keys),
+                         key=lambda a: a[0].numel()), card)}
         else:
             traced = device_ms(lambda: kern(*args), 20)
             if traced is None:  # the trace held no kernel event
@@ -1203,12 +1493,14 @@ def kernel_phase(rec, launches: dict):
             else:
                 ms, timed_by = traced[0], f"profiler device time, {traced[1]} launches"
             events_ms = cuda_ms(lambda: kern(*args), 20)
+            if name.startswith("solve_tiles_blockwise"):
+                extra = {"rounds": solve_rounds_timing(rec, name, card)}
         plain_ms = cuda_ms(lambda: plain(*args), 1)
         library_ms = None
         if name == "rze_bitmap_u32":  # the counts alone, not the bitmap
             library_ms = cuda_ms(lambda: torch.count_nonzero(args[0], dim=1), 20)
             extra["library_call"] = "torch.count_nonzero(words, dim=1): counts only"
-        b_ms, b_by = bound_ms(name, args, out, work[label])
+        b_ms, b_by = bound_ms(name, args, out)
         counter = COUNTER.get(name, name)
         by_path = {p: c[counter] for p, c in launches.items()
                    if c.get(counter) and row_paths(name, p)}
@@ -1443,14 +1735,31 @@ def main() -> None:
             check(blob == eng.compress(x, eb, adaptive_eb="tda", device="cpu"),
                   "the staircase's container differs on the CPU")
     check(words[1] == 4, "the decreasing run did not reach int32 subbins")
+    tiny_bound_runs(eng, kernels, ops)
+    # a field falling in linear index inside one bin on 4x4x4 plan tiles:
+    # one chain through every tile; its round-2 batch (the active tiles)
+    # goes to the kernel-vs-plain phase
+    ramp = -np.arange(64 * 64 * 256, dtype=np.float64).reshape(64, 64, 256) * 1e-9
+    rec.tag = "cross-tile ramp"
+    blob = eng.compress(ramp, 1.0, mode="abs")
+    rec.tag = ""
+    solved = solved_tiles("ramp(64, 64, 256)")
+    check(len(solved) >= 4 and solved[-1] < solved[0],
+          f"the cross-tile ramp's rounds solved {solved} tiles")
+    y = eng.decompress(blob)
+    check(y.tobytes() == eng.decompress(blob, device="cpu").tobytes(),
+          "the cross-tile ramp decodes to other values on the CPU")
+    check(order_preserved(torch.from_numpy(ramp).cuda(),
+                          torch.from_numpy(y).cuda(), topology),
+          "the cross-tile ramp's decode breaks the order")
     check(any(k[0] == "encode_values_fused" and k[-1] == torch.int32
               for k in rec.calls), "the value encode never stored int32 bins")
-    check(any(k[0] == "solve_tiles_blockwise_64" and k[1][0][1:] == (3, 3, 4098)
+    check(any(k[0] == "solve_tiles_blockwise_64" and k[3][0] == (3, 3, 4098)
               for k in rec.calls), "the 64-bit lane never ran the 1-D tile")
     phase_done("3 width runs")
 
     # ---- 4. kernels against plain versions on the recorded operands
-    rows = kernel_phase(rec, launches)
+    rows = kernel_phase(rec, launches, card)
     phase_done("4 kernels")
 
     # ---- 5. determinism manifests on the card: the order-preserving

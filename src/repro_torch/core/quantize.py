@@ -8,6 +8,14 @@ Every op is the reference's op, in the same order, in IEEE f64: ``/`` is
 correctly rounded, ``torch.round`` rounds half to even like
 ``jnp.round``, and the f64 -> f32 cast rounds to nearest.  That is what
 makes the port's bins bit-identical to the reference's on every device.
+
+XLA runs with denormals-are-zero and flush-to-zero: an arithmetic op or
+a comparison reads a subnormal operand as a zero of its sign and writes
+a subnormal result as one; bitcasts and selects pass bits through.  So
+each operand and result that can be subnormal is flushed here
+(``_fz``): the cell value, eps, ``(b - 0.5) * eps`` and its cast, and
+the bases the containment test compares.  Only a bound within about 2x
+of ``finfo.tiny``, or subnormal cells, ever meets one.
 """
 from __future__ import annotations
 
@@ -15,6 +23,9 @@ import numpy as np
 import torch
 
 from .floatbits import float_to_ordered, int_dtype_for, ordered_to_float
+from .topology import flush_subnormals
+
+_F64_TINY = float(np.finfo(np.float64).tiny)
 
 # Relative shrink applied to the user's bound (see the reference).
 EPS_SHRINK = 1.0 - 2.0**-20
@@ -54,13 +65,23 @@ def abs_bound_from_mode(x, eb: float, mode: str) -> float:
     raise ValueError(f"unknown error-bound mode {mode!r} (want 'abs'|'noa')")
 
 
+def _fz(v):
+    """``v`` (a tensor or a python float, read as f64) as XLA's arithmetic
+    reads and writes it: a subnormal becomes a zero of its sign."""
+    if isinstance(v, torch.Tensor):
+        return flush_subnormals(v)
+    return v * 0.0 if abs(v) < _F64_TINY else v
+
+
 def decode_base(bins: torch.Tensor, eps, dtype: torch.dtype) -> torch.Tensor:
-    """Smallest *representable* ``dtype`` value >= (b - 0.5) * eps.
+    """Smallest *representable* ``dtype`` value >= (b - 0.5) * eps, as the
+    reference computes it (with its flushes, so below ``finfo.tiny`` the
+    base is a zero or the bump above one).
 
     ``eps`` is a python float or an f64 tensor broadcastable to ``bins``.
     """
-    t = (bins.to(torch.float64) - 0.5) * eps
-    v = t.to(dtype)
+    t = _fz((bins.to(torch.float64) - 0.5) * _fz(eps))
+    v = _fz(t.to(dtype))
     if dtype == torch.float64:
         return v
     # round-to-nearest may land below t: bump one ulp up so v >= t
@@ -71,14 +92,15 @@ def decode_base(bins: torch.Tensor, eps, dtype: torch.dtype) -> torch.Tensor:
 def quantize_broadcast(x: torch.Tensor, eps_b, dtype: torch.dtype) -> torch.Tensor:
     """The quantize op sequence with a broadcastable (per-tile) eps."""
     bdt = bin_dtype_for(dtype)
+    x = _fz(x)
     xf = x.to(torch.float64)
-    b = torch.round(xf / eps_b).to(bdt)
+    b = torch.round(_fz(xf / _fz(eps_b))).to(bdt)
     # verify-and-correct: containment in [base(b), base(b+1)) under the
     # same float comparisons the decoder uses; two passes cover the worst
     # realizable misplacement (|round error| <= 1 bin)
     for _ in range(2):
-        too_high = x < decode_base(b, eps_b, dtype)
-        too_low = x >= decode_base(b + 1, eps_b, dtype)
+        too_high = x < _fz(decode_base(b, eps_b, dtype))
+        too_low = x >= _fz(decode_base(b + 1, eps_b, dtype))
         b = b - too_high.to(bdt) + too_low.to(bdt)
     return b
 

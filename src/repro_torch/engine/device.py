@@ -2,9 +2,9 @@
 
 Every stage is a torch op or a kernel wrapper on tensors that stay on the
 executor's device between stages; nothing crosses to the host between
-the tile upload and the stream download except one boolean per halo
-round (does any tile still move), the subbin maximum and, on the
-compacted download, the stream totals.
+the tile upload and the stream download except two counts per halo
+round (tiles that moved, tiles to solve next), the subbin maximum and,
+on the compacted download, the stream totals.
 
 The merged-3D layout: a (C, t0+2, t1+2, t2+2) haloed tile batch is
 computed on as the 3-D array (C*(t0+2), t1+2, t2+2).  An interior cell's
@@ -13,6 +13,8 @@ plain fill-shifts read the right cells for every interior; halo-row
 results are sliced away.
 """
 from __future__ import annotations
+
+from collections import deque
 
 import torch
 
@@ -69,15 +71,34 @@ def resident_flags(bins_m: torch.Tensor, vals_m: torch.Tensor,
     return _split_interior(flags_m, capacity).contiguous()
 
 
+# tiles solved in each round of the last resident solves, newest last
+SOLVED_TILES: deque = deque(maxlen=64)
+
+
 def resident_solve(flags: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
-                   max_rounds: int, sub0: torch.Tensor | None = None):
+                   max_rounds: int, adjacency: tuple[torch.Tensor, torch.Tensor],
+                   sub0: torch.Tensor | None = None, n_real: int | None = None):
     """Least fixed point over a resident tile batch.
 
-    Rounds alternate one gather that rebuilds every haloed tile from the
+    Rounds alternate one gather that rebuilds haloed tiles from the
     current interiors (``idx``/``mask`` from ``engine.halo``) and the
     tile-local solve to local convergence.  The loop ends when a round
-    moves no tile (one host sync per round), which by monotonicity is the
-    global least fixed point.
+    moves no tile, which by monotonicity is the global least fixed point.
+
+    Round 1 solves every real tile (``0..n_real-1``; the pad tiles after
+    them have no flags and are never solved, their interiors stay at the
+    start state).  From round 2 on only the tiles whose halo reads a tile
+    that moved in the round before are gathered and solved (``adjacency``:
+    the (dst, src) int64 tile pairs of ``halo.group_adjacency`` on the
+    device, dst's halo reading src's interior): a tile that
+    moved was solved to local convergence with its halo frozen, and any
+    other tile whose halo is unchanged since its last solve is still at
+    its fixed point.  So every round moves the tiles it would move if it
+    solved them all, and ``local1``, ``last_round`` and the rounds are
+    those of solving every tile every round.  The one host sync per round
+    reads the moved and the active tile counts; when no tile is active
+    the next round would move nothing, and it is counted without running.
+    Each call appends its tiles solved per round to ``SOLVED_TILES``.
 
     The state starts at ``sub0`` (the adaptive path's ordered-space
     seed, int32 or int64) or, without it, at int32 zeros (the subbin
@@ -90,29 +111,54 @@ def resident_solve(flags: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
     tile moved, rounds run).
     """
     c = flags.shape[0]
-    halo_shape = (c,) + tuple(idx.shape[1:])
-    idx_l = idx.reshape(-1).long()
-    mask_f = mask.reshape(-1)
+    n = c if n_real is None else n_real
+    halo_shape = tuple(idx.shape[1:])
+    idx2, mask2 = idx.reshape(c, -1), mask.reshape(c, -1)
     if sub0 is None:
         cur = torch.zeros(flags.shape, dtype=torch.int32, device=flags.device)
         fill = 0
     else:
-        cur = sub0
+        cur = sub0.clone()
         fill = torch.iinfo(sub0.dtype).min
+    cur_flat = cur.reshape(-1)
     last_round = torch.zeros((c,), dtype=torch.int32, device=flags.device)
-    local1 = last_round
+    local1 = torch.zeros((c,), dtype=torch.int32, device=flags.device)
+    dst, src = adjacency
+    active = None  # round 1: every real tile
+    solved = []
     rnd = 1
     while rnd <= max_rounds:
-        haloed = torch.where(mask_f, cur.reshape(-1)[idx_l], fill)
-        new, iters = solve_tiles_blockwise(haloed.reshape(halo_shape), flags)
-        ch_t = (new != cur).reshape(c, -1).any(dim=1)
+        if active is None:
+            sel = slice(0, n)
+            ix, mk, fl = idx2[:n], mask2[:n], flags[:n]
+        else:
+            sel = active
+            ix, mk, fl = idx2[active], mask2[active], flags[active]
+        m = fl.shape[0]
+        haloed = torch.where(mk, cur_flat.index_select(0, ix.reshape(-1))
+                             .reshape(m, -1), fill)
+        new, iters = solve_tiles_blockwise(haloed.reshape((m,) + halo_shape),
+                                           fl)
+        ch_t = (new != cur[sel]).reshape(m, -1).any(dim=1)
         if rnd == 1:
-            local1 = iters
-        last_round = torch.where(ch_t, rnd, last_round)
-        cur = new
-        if not bool(ch_t.any()):
+            local1[:n] = iters
+        cur[sel] = new
+        moved = torch.zeros((c,), dtype=torch.bool, device=flags.device)
+        moved[sel] = ch_t
+        last_round = torch.where(moved, rnd, last_round)
+        hits = torch.zeros((c,), dtype=torch.int32, device=flags.device)
+        hits.index_add_(0, dst, moved[src].to(torch.int32))
+        nxt = hits > 0
+        solved.append(m)
+        n_moved, n_next = torch.stack([moved.sum(), nxt.sum()]).tolist()
+        if not n_moved:
             break
         rnd += 1
+        if not n_next:
+            break
+        # the active tiles in index order (a stable sort puts them first)
+        active = torch.argsort((~nxt).to(torch.uint8), stable=True)[:n_next]
+    SOLVED_TILES.append(solved)
     return cur, local1, last_round, min(rnd, max_rounds)
 
 

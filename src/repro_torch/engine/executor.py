@@ -219,12 +219,16 @@ class Executor:
                 chunks.append([n_chunk, capacity, bins_s, None])
                 continue
             idx, mask = halo.group_index(layouts[lo:hi], capacity)
-            TRANSFER_COUNTS["h2d_aux"] += 2
-            TRANSFER_COUNTS["bytes_h2d"] += idx.nbytes + mask.nbytes
+            adj = halo.group_adjacency(layouts[lo:hi])
+            TRANSFER_COUNTS["h2d_aux"] += 4
+            TRANSFER_COUNTS["bytes_h2d"] += (idx.nbytes + mask.nbytes
+                                             + adj[0].nbytes + adj[1].nbytes)
+            adj = tuple(self._put(a) for a in adj)
             if adaptive:
                 s_final, local1, last_round, rounds = device.resident_solve(
                     flags, self._put(idx), self._put(mask),
-                    max_rounds=n_chunk * layout0.tile_elems + 2, sub0=s_init)
+                    max_rounds=n_chunk * layout0.tile_elems + 2,
+                    adjacency=adj, sub0=s_init, n_real=n_chunk)
                 # the stored subbin is the ordered distance climbed above
                 # the bin base (0 at invalid cells, whose state never
                 # moves); subtracting in the state's own width wraps as
@@ -236,7 +240,8 @@ class Executor:
                 del bins_m, vals_m
                 sub, local1, last_round, rounds = device.resident_solve(
                     flags, self._put(idx), self._put(mask),
-                    max_rounds=n_chunk * layout0.tile_elems + 2)
+                    max_rounds=n_chunk * layout0.tile_elems + 2,
+                    adjacency=adj, n_real=n_chunk)
             TRANSFER_COUNTS["d2h_round"] += rounds
             chunks.append([n_chunk, capacity, bins_s, sub, local1,
                            last_round])

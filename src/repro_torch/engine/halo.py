@@ -123,3 +123,29 @@ def group_index(layouts: tuple[TileLayout, ...], capacity: int):
     idx = np.ascontiguousarray(np.concatenate(idxs)).astype(np.int32)
     mask = np.ascontiguousarray(np.concatenate(masks))
     return idx, mask
+
+
+@lru_cache(maxsize=32)
+def group_adjacency(layouts: tuple[TileLayout, ...]) -> tuple[np.ndarray, np.ndarray]:
+    """(dst, src) int64 pairs of a group's tiles, dst != src, for which
+    the halo of tile dst (in ``group_index``'s table) reads an interior
+    cell of tile src: the tiles of the same field at most one grid step
+    away on every axis (a halo of one cell reaches each of the 26 grid
+    neighbours and no further; the padded field is whole tiles)."""
+    dsts, srcs = [], []
+    off = 0
+    for lay in layouts:
+        g = lay.grid
+        pos = np.stack(np.meshgrid(*(np.arange(n) for n in g), indexing="ij"),
+                       -1).reshape(-1, 3)
+        for d in np.ndindex(3, 3, 3):
+            step = np.asarray(d) - 1
+            if not step.any():
+                continue
+            nb = pos + step
+            ok = ((nb >= 0) & (nb < np.asarray(g))).all(axis=1)
+            dsts.append(off + np.flatnonzero(ok))
+            srcs.append(off + (nb[ok, 0] * g[1] + nb[ok, 1]) * g[2] + nb[ok, 2])
+        off += lay.n_tiles
+    return (np.concatenate(dsts).astype(np.int64),
+            np.concatenate(srcs).astype(np.int64))

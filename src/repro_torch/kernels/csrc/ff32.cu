@@ -10,6 +10,8 @@
 //     quantize:   b = sat_int32(rne(x * (1/eps))), then twice
 //                 b += [x >= (f32(b) + 0.5) * eps] - [x < (f32(b) - 0.5) * eps]
 //     dequantize: base = (f32(b) - 0.5) * eps; out = ordered^-1(ordered(base) + s)
+// with every subnormal operand and result (eps, x, x * (1/eps), the
+// bases) flushed to a signed zero, as XLA does (ftz.cuh).
 // Every float op is one IEEE f32 op with round-to-nearest: the `__f*_rn`
 // intrinsics are never contracted into a fused multiply-add (the build
 // also passes -fmad=false), and 1/eps is the correctly rounded quotient.
@@ -29,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ftz.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -44,12 +48,14 @@ __device__ __forceinline__ int32_t sat_rint(float v) {
 
 __device__ __forceinline__ int32_t quantize_one(float x, float inv,
                                                 float eps) {
-  int32_t b = sat_rint(__fmul_rn(x, inv));
+  x = ftz(x);  // XLA reads a subnormal cell as zero (DAZ)
+  int32_t b = sat_rint(ftz(__fmul_rn(x, inv)));  // and flushes (FTZ)
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const float bf = __int2float_rn(b);
-    const float lo = __fmul_rn(__fsub_rn(bf, 0.5f), eps);
-    const float hi = __fmul_rn(__fadd_rn(bf, 0.5f), eps);
+    // XLA flushes a subnormal bound (FTZ)
+    const float lo = ftz(__fmul_rn(__fsub_rn(bf, 0.5f), eps));
+    const float hi = ftz(__fmul_rn(__fadd_rn(bf, 0.5f), eps));
     b = (int32_t)((uint32_t)b - (uint32_t)(x < lo) + (uint32_t)(x >= hi));
   }
   return b;
@@ -62,7 +68,8 @@ __device__ __forceinline__ uint32_t to_ordered(uint32_t bits) {
 
 __device__ __forceinline__ float dequantize_one(int32_t b, int32_t s,
                                                 float eps) {
-  const float base = __fmul_rn(__fsub_rn(__int2float_rn(b), 0.5f), eps);
+  // XLA flushes a subnormal base (FTZ)
+  const float base = ftz(__fmul_rn(__fsub_rn(__int2float_rn(b), 0.5f), eps));
   const uint32_t m = to_ordered((uint32_t)__float_as_int(base)) + (uint32_t)s;
   return __int_as_float((int32_t)to_ordered(m));  // the map is an involution
 }
@@ -70,7 +77,8 @@ __device__ __forceinline__ float dequantize_one(int32_t b, int32_t s,
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const float* __restrict__ x, int32_t* __restrict__ out,
                 long long n, float eps, int vec) {
-  const float inv = __fdiv_rn(1.0f, eps);
+  eps = ftz(eps);  // XLA reads a subnormal eps as zero (DAZ)
+  const float inv = ftz(__fdiv_rn(1.0f, eps));  // and flushes (FTZ)
   const long long stride = (long long)gridDim.x * kThreads;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   long long done = 0;
@@ -97,6 +105,7 @@ __global__ void __launch_bounds__(kThreads)
 dequantize_kernel(const int32_t* __restrict__ bins,
                   const int32_t* __restrict__ subs, float* __restrict__ out,
                   long long n, float eps, int vec) {
+  eps = ftz(eps);  // XLA reads a subnormal eps as zero (DAZ)
   const long long stride = (long long)gridDim.x * kThreads;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   long long done = 0;

@@ -11,7 +11,9 @@
 //   - bins: zigzag decode, then a wrapping inclusive prefix sum over the
 //     chunk; subbins: the words as they are;
 //   - decode_base in f64 with the tile's eps (f32: round-to-nearest cast
-//     plus the one-ulp bump), then the ordered-int add of the subbin:
+//     plus the one-ulp bump; subnormal operands and results flushed to
+//     signed zeros as XLA does, ftz.cuh), then the ordered-int add of the
+//     subbin:
 //     out = ordered_to_float(float_to_ordered(base) + sub).
 // Templated on the output float (f32 with int32 ordered ints, f64 with
 // int64) and on both stream word widths; the reference kernel is f32-only
@@ -33,6 +35,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ftz.cuh"
 
 namespace {
 
@@ -58,8 +62,9 @@ template <> struct Ord<float> {
     return __int_as_float(b);
   }
   __device__ static float base(long long bin, double eps) {
-    const double t = ((double)bin - 0.5) * eps;
-    float v = __double2float_rn(t);
+    // XLA flushes the subnormal eps, product and cast (DAZ/FTZ)
+    const double t = ftz(((double)bin - 0.5) * ftz(eps));
+    float v = ftz(__double2float_rn(t));
     if ((double)v < t) v = from_ordered((int32_t)((uint32_t)to_ordered(v) + 1u));
     return v;
   }
@@ -76,7 +81,8 @@ template <> struct Ord<double> {
     return __longlong_as_double(b);
   }
   __device__ static double base(long long bin, double eps) {
-    return ((double)bin - 0.5) * eps;
+    // XLA flushes a subnormal eps and product (DAZ/FTZ)
+    return ftz(((double)bin - 0.5) * ftz(eps));
   }
 };
 

@@ -19,8 +19,12 @@
 // cells become 0, every cell is quantized by `quantize_broadcast`'s op
 // sequence (x to f64, round half to even of x / eps, then two passes of
 // verify-and-correct against decode_base(b) and decode_base(b + 1),
-// compared as f32), the int32 bin wraps to the W-bit store width, and
-// the delta chain above runs on the result.
+// compared as f32; subnormal operands and results flushed to signed
+// zeros as XLA does, ftz.cuh), the int32 bin wraps to the W-bit store
+// width, and the delta chain above runs on the result.  Only a cell can
+// be subnormal at every eps: the bases are at least eps / 2 in magnitude,
+// so the tiles with eps >= 2 * FLT_MIN run an instantiation without the
+// other flushes (a subnormal quotient rounds to bin 0 either way).
 //
 // What bounds it on this card: bytes for the integer encode (every input
 // word read once, every output word written once; the transpose is a few
@@ -43,6 +47,7 @@
 #include <stdint.h>
 
 #include "ballot_transpose.cuh"
+#include "ftz.cuh"
 
 namespace {
 
@@ -185,23 +190,39 @@ __device__ __forceinline__ float ordered_to_f32(int32_t m) {
   return __int_as_float(b);
 }
 
+// `ftz` where the bin width is below 2 * FLT_MIN (TINY), else nothing:
+// with a wider bin no base, cast or bump below can be subnormal
+template <bool TINY, typename T>
+__device__ __forceinline__ T ftz_tiny(T v) {
+  if constexpr (TINY) return ftz(v);
+  else return v;
+}
+
 // decode_base for f32: the smallest f32 >= (b - 0.5) * eps, computed in
 // f64, cast to nearest, bumped one ordered step if the cast fell below.
+template <bool TINY>
 __device__ __forceinline__ float decode_base_f32(int32_t b, double eps) {
-  const double t = ((double)b - 0.5) * eps;
-  float v = __double2float_rn(t);
+  // XLA flushes the subnormal eps, product and cast (DAZ/FTZ)
+  const double t = ftz_tiny<TINY>(((double)b - 0.5) * ftz_tiny<TINY>(eps));
+  float v = ftz_tiny<TINY>(__double2float_rn(t));
   if ((double)v < t) v = ordered_to_f32((int32_t)((uint32_t)f32_to_ordered(v) + 1u));
   return v;
 }
 
 // quantize_broadcast of one f32 cell (non-finite cells quantize 0)
+template <bool TINY>
 __device__ __forceinline__ int32_t quantize_f32(float x, double eps) {
   if (!isfinite(x)) x = 0.0f;
-  int32_t b = (int32_t)rint((double)x / eps);
+  x = ftz(x);  // XLA reads a subnormal cell as zero (DAZ)
+  // XLA flushes a subnormal eps and quotient (DAZ/FTZ)
+  int32_t b = (int32_t)rint(
+      ftz_tiny<TINY>((double)x / ftz_tiny<TINY>(eps)));
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
-    const int too_high = x < decode_base_f32(b, eps);
-    const int too_low = x >= decode_base_f32((int32_t)((uint32_t)b + 1u), eps);
+    // XLA compares a subnormal base as zero (DAZ)
+    const int too_high = x < ftz_tiny<TINY>(decode_base_f32<TINY>(b, eps));
+    const int too_low = x >= ftz_tiny<TINY>(
+        decode_base_f32<TINY>((int32_t)((uint32_t)b + 1u), eps));
     b = (int32_t)((uint32_t)b - (uint32_t)too_high + (uint32_t)too_low);
   }
   return b;
@@ -225,10 +246,14 @@ encode_values_kernel(const float* __restrict__ x,
   const long long e0 = (row - tile * cpt) * L;
   const float* src = x + tile * elems;
   const double tile_eps = eps[tile];
+  const bool tiny = tile_eps < 2.0 * FLT_MIN;  // uniform over the CTA
   for (int j = threadIdx.x; j < L; j += kThreads) {
     const long long e = e0 + j;
+    const int32_t b = e >= elems ? 0
+                      : tiny     ? quantize_f32<true>(src[e], tile_eps)
+                                 : quantize_f32<false>(src[e], tile_eps);
     // the wrapping narrowing to the store width, as astype(bins_store)
-    bins[j] = e < elems ? (S)(U)(uint32_t)quantize_f32(src[e], tile_eps) : (S)0;
+    bins[j] = (S)(U)(uint32_t)b;
   }
   __syncthreads();
   encode_chunk<W>(bins, 0, L, row, bitmap, words, counts, kDelta, sh, &total);

@@ -20,6 +20,9 @@ exact and ``base`` is monotone; ``ops.ff32_domain_ok`` checks it.  Every
 op is one IEEE f32 op, rounded on its own (no fused multiply-add), and
 the float -> int32 conversion saturates (NaN -> 0, >= 2^31 -> INT32_MAX,
 < -2^31 -> INT32_MIN) as the reference's does; the integer adds wrap.
+Every subnormal operand and result (eps32, x, ``x * (1/eps32)``, the
+bases) is flushed to a zero of its sign, as XLA's denormals-are-zero
+and flush-to-zero arithmetic does.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from ..codecs.bitshuffle import bitshuffle, bitunshuffle
 from ..codecs.rze import rze_bitmap
 from ..core.floatbits import float_to_ordered, ordered_to_float
+from ..core.topology import flush_subnormals as _fz
 
 FF32_MAX_BIN = 2**23  # |bin| must stay below this for base() exactness
 
@@ -52,20 +56,20 @@ def _rne_int32(v: torch.Tensor) -> torch.Tensor:
 def quantize_ff32_ref(x: torch.Tensor, eps32) -> torch.Tensor:
     """f32-only guaranteed binning (plain version of the FF32 quantize
     kernel): f32 ``x`` of any shape -> int32 bins of that shape."""
-    x = x.to(torch.float32)
-    eps = _f32(eps32, x.device)
-    inv = torch.ones((), dtype=torch.float32, device=x.device) / eps
-    b = _rne_int32(x * inv)
+    x = _fz(x.to(torch.float32))
+    eps = _fz(_f32(eps32, x.device))
+    inv = _fz(torch.ones((), dtype=torch.float32, device=x.device) / eps)
+    b = _rne_int32(_fz(x * inv))
     for _ in range(2):
         bf = b.to(torch.float32)
-        lo = (bf - 0.5) * eps
-        hi = (bf + 0.5) * eps
+        lo = _fz((bf - 0.5) * eps)
+        hi = _fz((bf + 0.5) * eps)
         b = b - (x < lo).to(torch.int32) + (x >= hi).to(torch.int32)
     return b
 
 
 def decode_base_ff32(bins: torch.Tensor, eps32) -> torch.Tensor:
-    return (bins.to(torch.float32) - 0.5) * _f32(eps32, bins.device)
+    return _fz((bins.to(torch.float32) - 0.5) * _fz(_f32(eps32, bins.device)))
 
 
 def dequantize_ff32_ref(bins: torch.Tensor, subbins: torch.Tensor,

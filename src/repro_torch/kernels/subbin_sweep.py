@@ -99,8 +99,16 @@ def solve_tiles_blockwise(sub_h: torch.Tensor, flags: torch.Tensor):
 
 
 BAND = 8  # X-rows per band, the reference's
+BAND_TILE = (16, 64)  # the band kernel's tile in Y and Z
 # launches of the band kernel between two host reads of its change flags
-BAND_CHECK_EVERY = 16
+BAND_CHECK_EVERY = 4
+# passes after which a CTA of the band kernel stops; the next launch
+# relaxes its tile again
+BAND_MAX_PASSES = 4096
+# which tiles a launch relaxes (csrc/subbin_sweep.cu): all, those whose X
+# halo changed in the sweep before, those next to a tile that moved in
+# the launch before
+_ALL, _X_HALO, _YZ_HALO = 0, 1, 2
 
 
 def _relax_bands(cur, halo_lo, halo_hi, need):
@@ -159,13 +167,19 @@ def solve_blockwise(flags3: torch.Tensor):
     (X, Y, Z) int32, global sweeps): the CUDA kernel on CUDA tensors, the
     plain version on CPU tensors.
 
-    On the card one launch relaxes every cell once (Jacobi, ping-ponging
-    two buffers): neighbours in the cell's own band are read from the
-    current state, those in another band from a snapshot of the
-    sweep-start state.  Each launch sets its own change flag; a launch
+    On the card one launch relaxes 8 x 16 x 64 tiles of the bands to
+    convergence in shared memory, in place: neighbours in the band are
+    read from the current state (other tiles' cells as they stand), those
+    in another band from a snapshot of every band's rows 0 and 7 taken at
+    the sweep's start.  A solve's first launch relaxes every tile; a later
+    sweep's first launch the tiles next to a tile of a neighbour band
+    that moved in the sweep before (their X halo changed); a sweep's later
+    launches the tiles next to a tile that moved in the launch before,
+    and the tiles that ``BAND_MAX_PASSES`` passes did not take to
+    convergence in it.  Each launch sets its own change flag; a launch
     whose predecessor in the batch changed nothing returns at once.  The
     host reads the flags every ``BAND_CHECK_EVERY`` launches: the first
-    clear flag ends the sweep (its launch's input is the band fixed
+    clear flag ends the sweep (its launch found every band at its fixed
     point), and a sweep ending at its first launch ends the solve.
     """
     if not flags3.is_cuda:
@@ -176,34 +190,41 @@ def solve_blockwise(flags3: torch.Tensor):
     x, y, z = flags3.shape
     xp = -(-x // BAND) * BAND
     dev = flags3.device
-    flags_p = torch.zeros((xp, y, z), dtype=torch.int32, device=dev)
-    flags_p[:x] = flags3
-    bufs = [torch.zeros((xp, y, z), dtype=torch.int32, device=dev),
-            torch.empty((xp, y, z), dtype=torch.int32, device=dev)]
-    snap = torch.empty_like(bufs[0])
+    flags_p = flags3
+    if xp != x:  # pad X to whole bands; the pad rows have no flags
+        flags_p = torch.zeros((xp, y, z), dtype=torch.int32, device=dev)
+        flags_p[:x] = flags3
+    sub = torch.zeros((xp, y, z), dtype=torch.int32, device=dev)
+    bands = sub.view(xp // BAND, BAND, y, z)
+    snap = torch.empty((xp // BAND, 2, y, z), dtype=torch.int32, device=dev)
+    n_tiles = xp // BAND * -(-y // BAND_TILE[0]) * -(-z // BAND_TILE[1])
+    stamp = torch.full((n_tiles,), -1, dtype=torch.int32, device=dev)
     changed = torch.empty((BAND_CHECK_EVERY,), dtype=torch.int32, device=dev)
-    sweeps = 0
+    sweeps = launch = 0
+    since = -1  # the first launch of the sweep before; -1: none yet
     while True:
-        snap.copy_(bufs[0])
+        snap[:, 0].copy_(bands[:, 0])
+        snap[:, 1].copy_(bands[:, BAND - 1])
+        first = launch
         sweep_moved = False
         while True:
             changed.zero_()
             for j in range(BAND_CHECK_EVERY):
-                _lib.call("subbin_sweep", "lopc_band_sweep", flags_p,
-                          bufs[j % 2], snap, bufs[1 - j % 2], changed, j,
-                          xp, y, z)
+                mode = (_YZ_HALO if launch > first
+                        else _ALL if since < 0 else _X_HALO)
+                _lib.call("subbin_sweep", "lopc_band_sweep", flags_p, sub,
+                          snap, stamp, changed, j, launch, mode, since,
+                          BAND_MAX_PASSES, xp, y, z)
                 _lib.LAUNCHES["solve_blockwise"] += 1
+                launch += 1
             moved = changed.tolist()
             if 0 in moved:
-                stop = moved.index(0)
-                sweep_moved |= stop > 0
-                # launch `stop` changed nothing: its input is the fixed point
-                if stop % 2:
-                    bufs.reverse()
+                # the first launch that changed nothing read the fixed point
+                sweep_moved |= moved.index(0) > 0
                 break
             sweep_moved = True
-            # an even number of launches leaves the state in bufs[0]
         sweeps += 1
+        since = first
         if not sweep_moved:
             break
-    return bufs[0][:x].contiguous(), sweeps
+    return sub[:x].contiguous(), sweeps
