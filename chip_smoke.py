@@ -77,7 +77,8 @@ Phases; any failure exits nonzero before the last line is printed:
    lane).  For ISABEL and for the mixed run, a one-tile-deep cut (16 X
    rows) compressed adaptively on the card and on the CPU must give the
    same bytes, and the full container must decode on the CPU to the
-   card's bits.  Times a warm compress and decompress (median of 3) and
+   card's bits; so must Miranda's 16-row cut at eb 1e-2, uniform and
+   adaptive (its real stream widths and the 64-bit lane).  Times a warm compress and decompress (median of 3) and
    profiles one of each (ISABEL and Miranda at eb 1e-2).
 2f. The FF32 contract at full size: ISABEL at eps =
    ``effective_eps(1e-2 * range)``: ``ff32_domain_ok``, then
@@ -116,9 +117,15 @@ Phases; any failure exits nonzero before the last line is printed:
    round 2 holding only the active tiles, the cross-tile ramp's among
    them; its ordered-space lanes on ISABEL-adaptive's batches (32-bit),
    Miranda-adaptive's and the 1-D f64 field's (64-bit); the FF32 pair at
-   ISABEL's size and at eps 1.5 tiny).  Times each kernel by its device
-   time per launch (torch.profiler) and the plain version with CUDA
-   events, and computes each kernel's bound from the operands.  The band
+   ISABEL's size and at eps 1.5 tiny).  The fused encode and decode
+   (kernels 2, 3, 3') and kernel 4 also run adversarial operands
+   (``fused_cases``): every pair of bins and subbin widths at f32 and
+   f64, the 1-D and 2-D plan tiles, an odd tile, batch 1, an all-zero
+   tile, bitmap rows with every bit set, words at the zigzag and wrap
+   extremes.  Times each kernel by its device time per launch
+   (torch.profiler) and the plain version with CUDA events, and computes
+   each kernel's bound from the operands; those four kernels on every
+   recorded signature.  The band
    solve is also timed on Miranda's whole flags (CUDA events, launches
    per global sweep), and each lane of the tile solve over every round of
    one main-path resident solve (CUDA events per round, with the round's
@@ -320,6 +327,27 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time per call of a wrapper that enqueues kernels without a
+    host sync: CUDA events around ``reps`` back-to-back calls queued
+    behind a spin kernel (``torch.cuda._sleep``) that outlasts the host's
+    enqueueing, so the host's time between launches does not count.  The
+    fallback where a profiler trace holds no kernel event."""
+    import torch
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1e6 * reps))  # about 0.5 ms a call at 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -786,27 +814,33 @@ def adaptive_path(name, shape, dtype, eng, executor, kernels, topology, tda,
     return (x, blob, y), info
 
 
-def adaptive_cpu_agreement(x, blob, y, eng, info: dict) -> None:
-    """A one-tile-deep cut of the field (16 X-rows) compressed adaptively
-    on the card and on the CPU gives the same bytes; the full container
-    decodes on the CPU to the card's bits."""
+def cut_agreement(x, eng, info: dict, **kw) -> None:
+    """A one-tile-deep cut of the field (16 X-rows) compressed on the card
+    and on the CPU (with ``kw``: adaptive or not) gives the same bytes."""
     import numpy as np
 
     cut = np.ascontiguousarray(x[:16])
-    eb = info["eb"]
+    eb = info.get("eb", EB)
     t0 = time.perf_counter()
-    blob_cut = eng.compress(cut, eb, adaptive_eb="tda")
-    check(eng.compress(cut, eb, adaptive_eb="tda", device="cpu") == blob_cut,
-          f"{info['field']}: the 16-row cut's adaptive container differs on "
-          "the CPU")
+    blob_cut = eng.compress(cut, eb, **kw)
+    check(eng.compress(cut, eb, device="cpu", **kw) == blob_cut,
+          f"{info['field']}: the 16-row cut's container differs on the CPU")
     info["cpu_cut_compress_s"] = time.perf_counter() - t0
+    log(f"full size {info['field']}: the {cut.shape} cut's container equals "
+        f"the CPU's ({len(blob_cut)} bytes, {info['cpu_cut_compress_s']:.1f} s)")
+
+
+def adaptive_cpu_agreement(x, blob, y, eng, info: dict) -> None:
+    """The 16-row cut's adaptive container equals the CPU's; the full
+    container decodes on the CPU to the card's bits."""
+    cut_agreement(x, eng, info, adaptive_eb="tda")
     t0 = time.perf_counter()
     y_cpu = eng.decompress(blob, device="cpu")
     info["cpu_decompress_s"] = time.perf_counter() - t0
     check(y_cpu.tobytes() == y.tobytes(),
           f"{info['field']}: the CPU decodes the container to other values")
-    log(f"full size {info['field']}: the {cut.shape} cut's container equals "
-        "the CPU's; the CPU decodes the full container to the card's bits")
+    log(f"full size {info['field']}: the CPU decodes the full container to "
+        "the card's bits")
 
 
 def ff32_path(name, shape, dtype, ops, subbin, quantize, tda, kernels,
@@ -1295,7 +1329,9 @@ def serpentine(x: int, y: int, z: int):
 
 def _same(a, b) -> tuple[bool, float]:
     if hasattr(a, "shape"):
-        return bits_equal(a, b), max_abs_err(a, b)
+        # bit-equal values are 0 apart even where they are inf or NaN
+        same = bits_equal(a, b)
+        return same, 0.0 if same else max_abs_err(a, b)
     return a == b, float(abs(a - b))  # a sweep count
 
 
@@ -1383,6 +1419,151 @@ def solve_rounds_timing(rec, lane: str, card: str) -> dict:
     return info
 
 
+# the fused encode and decode (kernels 2, 3, 3') and kernel 4, which
+# shares the encode: each also runs the adversarial cases of
+# `fused_cases` and is timed on every signature the paths recorded
+FUSED = ("encode_ints_fused", "decode_tiles_fused", "decode_tiles_fused_nosub",
+         "encode_values_fused")
+SIGNED = {16: "int16", 32: "int32", 64: "int64"}
+
+
+def _ints_case(rng, batch: int, elems: int, w: int, kind: str):
+    """(batch, elems) w-bit ints: a random walk (with a zero tile for
+    "zero chunk"), every word random ("dense": every plane word nonzero,
+    about), or words at the zigzag and wrap extremes, -2^(w-1),
+    2^(w-1) - 1, -1, 0, 1 in turn."""
+    import numpy as np
+
+    dt = np.dtype(SIGNED[w])
+    info = np.iinfo(dt)
+    if kind == "extremes":
+        cycle = np.array([info.min, info.max, -1, 0, 1, info.min, 0, info.max],
+                         dtype=dt)
+        return np.resize(cycle, (batch, elems)).astype(dt)
+    if kind == "dense":
+        return rng.integers(info.min, info.max, (batch, elems), dtype=dt,
+                            endpoint=True)
+    x = (np.cumsum(rng.integers(-3, 4, (batch, elems)), axis=1)
+         + rng.integers(-2**12, 2**12, (batch, 1))).astype(dt)
+    if kind == "zero chunk":
+        x[0] = 0
+    return x
+
+
+def _stream_case(ints, transform: str, full: bool, rng):
+    """(bitmap, front-packed words) rows of an int batch on the card, by
+    the plain encode; ``full``: the first tile's rows get every bitmap bit
+    set and random nonzero words."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fused_encode
+
+    w = ints.dtype.itemsize * 8
+    bm, words, _ = fused_encode.encode_ints_plain(
+        torch.from_numpy(ints).cuda(), 131072 // w, transform)
+    bm, words = bm.cpu().numpy(), words.cpu().numpy()
+    packed = np.zeros_like(words)
+    for r in range(words.shape[0]):
+        nz = words[r][words[r] != 0]
+        packed[r, : nz.size] = nz
+    if full:
+        cpt = bm.shape[0] // ints.shape[0]
+        bm[:cpt] = -1
+        packed[:cpt] = (rng.integers(1, 2**15, packed[:cpt].shape)
+                        * rng.choice([-1, 1], packed[:cpt].shape)).astype(words.dtype)
+    return torch.from_numpy(bm).cuda(), torch.from_numpy(packed).cuda()
+
+
+def fused_cases(name: str) -> list:
+    """Adversarial operands of the fused encode and decode kernels (2, 3,
+    3') and of kernel 4: every pair of bins and subbin widths (16/32/64)
+    at f32 and f64, the 3-D plan tile (16384 cells), the 1-D and 2-D ones
+    (4096, not a whole number of 16-bit chunks), an odd count, batch 1,
+    an all-zero tile, a tile whose bitmap rows have every bit set, and
+    words at the zigzag and wrap extremes.  Each case is (label,
+    operands)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(16)
+    kinds = ("random", "zero chunk", "full bitmap", "extremes")
+    shapes = [(4, 16384, k) for k in kinds] + [(3, 4096, k) for k in kinds] + [
+        (1, 16384, "random"), (2, 8192 + 100, "random")]
+    cases = []
+    if name == "encode_ints_fused":
+        for w in (16, 32, 64):
+            for transform in ("delta", "raw"):
+                for batch, elems, kind in shapes:
+                    kind = "dense" if kind == "full bitmap" else kind
+                    ints = torch.from_numpy(
+                        _ints_case(rng, batch, elems, w, kind)).cuda()
+                    cases.append((f"adversarial {kind} ({batch}, {elems}) "
+                                  f"int{w} {transform}",
+                                  (ints, 131072 // w, transform)))
+    elif name == "encode_values_fused":
+        for w in (16, 32):
+            for batch, elems, kind in shapes[::4] + shapes[-2:]:
+                x = (rng.standard_normal((batch, elems))
+                     * (30.0 if w == 16 else 3e4)).astype(np.float32)
+                x[:, elems - 37:] = np.nan   # tile pad
+                x[0, :3] = [np.inf, -np.inf, -0.0]
+                x[0, 6:40] = np.float32(1e-41) * np.arange(34)
+                eps = torch.from_numpy(rng.uniform(1e-3, 1.0, batch)).cuda()
+                cases.append((f"adversarial ({batch}, {elems}) int{w} bins",
+                              (torch.from_numpy(x).cuda(), eps, 131072 // w,
+                               torch.float32, getattr(torch, SIGNED[w]))))
+    else:
+        pairs = ([(bw, None) for bw in (16, 32, 64)]
+                 if name == "decode_tiles_fused_nosub" else
+                 [(bw, sw) for bw in (16, 32, 64) for sw in (16, 32, 64)])
+        for bw, sw in pairs:
+            for dtype in (torch.float32, torch.float64):
+                for batch, elems, kind in shapes:
+                    full = kind == "full bitmap"
+                    ints_kind = "random" if full else kind
+                    bins = _ints_case(rng, batch, elems, bw, ints_kind)
+                    args = list(_stream_case(bins, "delta", full, rng))
+                    if sw is None:
+                        args += [None, None]
+                    else:
+                        subs = (_ints_case(rng, batch, elems, sw, ints_kind)
+                                if kind == "extremes" else
+                                rng.integers(0, 9, (batch, elems))
+                                .astype(SIGNED[sw]))
+                        if kind == "zero chunk":
+                            subs[0] = 0
+                        args += list(_stream_case(subs, "raw", full, rng))
+                    eps = np.resize([1e-3, 2.5e-2, 0.7, 3.0] if dtype ==
+                                    torch.float32 else [1e-9, 3e-4, 2.0, 0.5],
+                                    batch)
+                    cases.append((
+                        f"adversarial {kind} ({batch}, {elems}) bins int{bw} "
+                        f"subbins {'none' if sw is None else f'int{sw}'} "
+                        f"{str(dtype)[6:]}",
+                        (*args, torch.from_numpy(eps).cuda(), elems, dtype)))
+    return cases
+
+
+def signature_timing(name: str, kern, rec, keys, card: str) -> list:
+    """The kernel's device time per launch on the first operands of every
+    signature the paths recorded, beside its bound."""
+    rows = []
+    for k in keys:
+        args = rec.calls[k][0]
+        out = kern(*args)
+        traced = device_ms(lambda: kern(*args), 20)
+        ms = traced[0] if traced else queued_ms(lambda: kern(*args), 20)
+        b_ms, b_by = bound_ms(name, args, out)
+        rows.append({"signature": repr(k[1:]), "ms": ms, "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "timed_by": "profiler device time" if traced
+                     else "CUDA events, queued"})
+        log(f"kernel {name} on {k[1:]}: {ms:.4f} ms, bound {b_ms:.4f} ms by "
+            f"{b_by}; card {card}")
+    return rows
+
+
 def kernel_phase(rec, launches: dict, card: str):
     import torch
 
@@ -1440,6 +1621,8 @@ def kernel_phase(rec, launches: dict, card: str):
             cases = band_cases(rec, topology, quantize)
         else:
             cases = [(repr(k[1:]), args) for k in keys for args in rec.calls[k]]
+            if name in FUSED:
+                cases += fused_cases(name)
         checks, err, work = [], 0.0, {}
         for label, args, *cap in cases:
             relaxations[0] = 0
@@ -1489,12 +1672,16 @@ def kernel_phase(rec, launches: dict, card: str):
         else:
             traced = device_ms(lambda: kern(*args), 20)
             if traced is None:  # the trace held no kernel event
-                ms, timed_by = cuda_ms(lambda: kern(*args), 20), "CUDA events"
+                ms = queued_ms(lambda: kern(*args), 20)
+                timed_by = "CUDA events, queued behind a spin kernel"
             else:
                 ms, timed_by = traced[0], f"profiler device time, {traced[1]} launches"
             events_ms = cuda_ms(lambda: kern(*args), 20)
             if name.startswith("solve_tiles_blockwise"):
                 extra = {"rounds": solve_rounds_timing(rec, name, card)}
+            if name in FUSED:
+                extra = {"per_signature": signature_timing(name, kern, rec,
+                                                           keys, card)}
         plain_ms = cuda_ms(lambda: plain(*args), 1)
         library_ms = None
         if name == "rze_bitmap_u32":  # the counts alone, not the bitmap
@@ -1518,7 +1705,7 @@ def kernel_phase(rec, launches: dict, card: str):
             f"({timed_by}; {events_ms:.4f} ms by CUDA events), plain "
             f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}, library "
             f"{library_ms}, on {label}; launches {by_path}"
-            + (f"; {extra}" if extra else ""))
+            + (f"; {extra}" if extra and "per_signature" not in extra else ""))
     subbin_sweep._relax_bands = relax_bands
     return rows
 
@@ -1679,6 +1866,11 @@ def main() -> None:
         plain_agreement(*arrays, eng, info, cpu_compress)
     for arrays, info in (adaptive_runs[0], adaptive_runs[2]):
         adaptive_cpu_agreement(*arrays, eng, info)
+    # Miranda's containers at the main path's bound, on a cut: the f64
+    # field's 64-bit lane and its real stream widths against the CPU
+    cut_agreement(runs[1][0][0], eng, runs[1][1])
+    cut_agreement(adaptive_runs[1][0][0], eng, adaptive_runs[1][1],
+                  adaptive_eb="tda")
     phase_done("profiles and CPU agreement")
 
     # ---- 2c. region reads of the full-size containers

@@ -6,7 +6,8 @@ seconds) and loaded with ``ctypes``.  Libraries are built at first use,
 all sources in parallel, into ``build/kernels/`` at the root of the
 checkout, and named by a hash of their source, the shared ``csrc/*.cuh``
 headers and the flags, so an edited source is rebuilt and an unchanged
-one is reused.
+one is reused.  ``defines`` builds a variant of a library beside it (the
+phase-clock build of ``phase_clocks.py``).
 
 ``LAUNCHES`` counts kernel launches by kernel name; a wrapper adds one
 exactly where it launches its kernel, never on the plain path.
@@ -37,8 +38,8 @@ NVCC_FLAGS = (
 LAUNCHES: Counter = Counter()
 
 _LOCK = threading.Lock()
-_LIBS: dict[str, ctypes.CDLL] = {}
-_FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_LIBS: dict[tuple[str, tuple], ctypes.CDLL] = {}
+_FNS: dict[tuple[str, str, tuple], ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -54,26 +55,32 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines: tuple = ()) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _lib_path(name: str, defines: tuple = ()) -> Path:
     # the shared headers are part of every source's build
     src = b"".join(p.read_bytes() for p in
                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(_flags(defines)).encode()
+    digest = hashlib.sha256(src + flags).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def build(names=SOURCES) -> float:
+def build(names=SOURCES, defines: tuple = ()) -> float:
     """Compile every missing library, one ``nvcc`` per source, all started
     together.  Returns the wall seconds spent; raises on any failure."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, proc))
@@ -89,16 +96,16 @@ def build(names=SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get((name, defines))
         if lib is None:
-            build(SOURCES)
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            build(SOURCES if not defines else (name,), defines)
+            lib = ctypes.CDLL(str(_lib_path(name, defines)))
             lib.lopc_errstr.restype = ctypes.c_char_p
             lib.lopc_errstr.argtypes = [ctypes.c_int]
-            _LIBS[name] = lib
+            _LIBS[(name, defines)] = lib
         return lib
 
 
@@ -108,22 +115,22 @@ def _ctype(a):
     return ctypes.c_double if isinstance(a, float) else ctypes.c_longlong
 
 
-def call(name: str, fn: str, *args) -> None:
+def call(name: str, fn: str, *args, defines: tuple = ()) -> None:
     """Call ``fn`` of library ``name`` with pointers, ints and the current
     stream appended; raise with CUDA's message on a nonzero return.  The
     C signature is read off the first call's arguments and kept."""
-    f = _FNS.get((name, fn))
+    f = _FNS.get((name, fn, defines))
     if f is None:
-        f = getattr(library(name), fn)
+        f = getattr(library(name, defines), fn)
         f.argtypes = [_ctype(a) for a in args] + [ctypes.c_void_p]
         f.restype = ctypes.c_int
-        _FNS[(name, fn)] = f
+        _FNS[(name, fn, defines)] = f
     argv = [a.data_ptr() if isinstance(a, torch.Tensor)
             else a if isinstance(a, float) else int(a) for a in args]
     err = f(*argv, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
-            f"{fn} failed: {library(name).lopc_errstr(err).decode()} "
+            f"{fn} failed: {library(name, defines).lopc_errstr(err).decode()} "
             f"(cudaError {err})")
 
 

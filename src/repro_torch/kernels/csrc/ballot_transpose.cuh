@@ -1,6 +1,6 @@
 // The MSB-first bit-plane transpose of 32 words held one per lane of a
-// warp, shared by the fused encode (fused_encode.cu) and the BIT_4
-// transpose (bitshuffle.cu).
+// warp, by ballots, for the BIT_4 transpose (bitshuffle.cu); the fused
+// encode and decode use the transposes of lane_transpose.cuh.
 //
 // `__ballot_sync` over bit (NB-1-p) of every lane's value gives plane p's
 // bits in lane order (lane i at bit i); `__brev` turns that into MSB-first

@@ -27,31 +27,51 @@
 // other flushes (a subnormal quotient rounds to bin 0 either way).
 //
 // What bounds it on this card: bytes for the integer encode (every input
-// word read once, every output word written once; the transpose is a few
-// integer instructions per bit).  The value encode adds one f64 divide
-// and four f64 decode_base evaluations per cell, which at the H100's f64
-// rate still stays below its bytes time.  One CTA owns one chunk row.
-// Warps walk groups of 32 words (64 for W = 64); `__ballot_sync` over one
-// bit of every lane's word yields 32 bits of one plane in one
-// instruction (`ballot_planes` of ballot_transpose.cuh, shared with the
-// BIT_4 kernel; W = 16 splits a ballot into two plane words, W = 64 joins
-// two).  The shuffled
-// chunk is staged in shared memory so the bitmap ballots and the store to
-// device memory are coalesced; the value encode stages its chunk's bins
-// in a second shared buffer, so each cell is quantized once and the
-// delta reads its neighbour from there.  Numerics: built with
-// -fmad=false; the f64 divide is IEEE (no fast-math, no reciprocal),
-// `rint` rounds half to even and the f32 cast is __double2float_rn.
+// word read once, every output word written once), provided the
+// transpose costs few instructions per word and enough loads are in
+// flight (W ballots per 32 words with one 32-word group in flight per
+// warp make it issue- and latency-bound).  One CTA owns one chunk row.
+//   - W = 16 (every main-path stream) and W = 32: thread t owns words
+//     32t .. 32t+31, loads them 16 bytes at a time, takes the delta and
+//     zigzag (at W = 16 two halfwords at a time), and transposes them in
+//     registers (transpose16x2 / transpose32 of lane_transpose.cuh:
+//     delta swaps, no shuffle); the result is its columns of every plane,
+//     stored straight to device memory, 128 contiguous bytes a warp, and
+//     balloted into the bitmap.  No shared memory but the count; a CTA
+//     has L / 32 threads (256 at W = 16, 128 at W = 32).
+//   - W = 64: each warp owns a contiguous run of units of 64 words and
+//     issues the loads of its units before it transforms any
+//     (consecutive lanes on consecutive words; the delta's predecessor
+//     from the next lane down by a shuffle, across units from lane 31 of
+//     the unit before).  The transpose is the shuffle butterfly of
+//     lane_transpose.cuh, which leaves plane p's word in lane p; the
+//     planes are staged in shared memory with 8 bytes of padding after
+//     each, so the 32 lanes' stores hit distinct banks, and a second pass
+//     stores them in order and ballots the bitmap and its popcount from
+//     the same registers.
+// The value encode stages its chunk's bins in a second shared buffer, so
+// each cell is quantized once and the delta reads its neighbour from
+// there.  Numerics: built with -fmad=false; the f64 divide is IEEE (no
+// fast-math, no reciprocal), `rint` rounds half to even and the f32 cast
+// is __double2float_rn.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ballot_transpose.cuh"
+#include "clocks.cuh"
 #include "ftz.cuh"
+#include "lane_transpose.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // a CTA's threads, but 128 at W = 32
+constexpr int kWarps = kThreads / 32;
+
+// threads of a CTA at word width W: one per 32 words at W = 16 and 32
+template <int W>
+__host__ __device__ constexpr int block_threads() {
+  return W == 32 ? 128 : kThreads;
+}
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Transform { kRaw = 0, kDelta = 1 };
@@ -61,121 +81,257 @@ template <> struct Word<16> { using S = int16_t; using U = uint16_t; };
 template <> struct Word<32> { using S = int32_t; using U = uint32_t; };
 template <> struct Word<64> { using S = int64_t; using U = uint64_t; };
 
+// One W-bit chunk row and its shared staging buffer (used at W = 64:
+// the planes, each padded by one word)
 template <int W>
-__device__ __forceinline__ typename Word<W>::U transform_word(
-    const typename Word<W>::S* row, long long e, long long elems, int j,
-    int mode) {
-  using S = typename Word<W>::S;
-  using U = typename Word<W>::U;
-  const U v = e < elems ? (U)row[e] : (U)0;
-  if (mode == kRaw) return v;
-  U d = v;
-  if (j > 0) {
-    const U prev = (e - 1) < elems ? (U)row[e - 1] : (U)0;
-    d = (U)(v - prev);
-  }
-  // zigzag: (d << 1) ^ (d >> (W-1)), the right shift arithmetic
-  const U sign = (U)((S)d < 0 ? ~(U)0 : (U)0);
-  return (U)((U)(d << 1) ^ sign);
+struct Chunk {
+  static constexpr int L = 131072 / W;          // words per 16 KiB chunk
+  static constexpr int P = L / W;               // words per plane
+  static constexpr int STAGE = W == 64 ? W * (P + 1) : 8;
+};
+
+// 8 bits spread to the even bits of 16
+__device__ __forceinline__ uint32_t spread8(uint32_t h) {
+  h = (h | (h << 4)) & 0x0f0fu;
+  h = (h | (h << 2)) & 0x3333u;
+  return (h | (h << 1)) & 0x5555u;
 }
 
-// plane words of one group from per-lane words; writes into `sh`
-template <int W>
-__device__ __forceinline__ void shuffle_group(typename Word<W>::U* sh,
-                                              typename Word<W>::U u0,
-                                              typename Word<W>::U u1,
-                                              int g, int lane) {
-  using U = typename Word<W>::U;
-  constexpr int L = 131072 / W;  // words per 16 KiB chunk
-  constexpr int P = L / W;       // words per plane
-  if constexpr (W == 64) {
-    // planes 0-31 from the high halves, 32-63 from the low halves; the
-    // lane's word (u0) fills a plane word's high half, u1 its low half
-    const uint32_t a0 = ballot_planes<32>((uint32_t)(u0 >> 32), lane);
-    const uint32_t b0 = ballot_planes<32>((uint32_t)(u1 >> 32), lane);
-    const uint32_t a1 = ballot_planes<32>((uint32_t)u0, lane);
-    const uint32_t b1 = ballot_planes<32>((uint32_t)u1, lane);
-    sh[lane * P + g] = ((U)a0 << 32) | (U)b0;
-    sh[(lane + 32) * P + g] = ((U)a1 << 32) | (U)b1;
-  } else if constexpr (W == 32) {
-    sh[lane * P + g] = (U)ballot_planes<32>((uint32_t)u0, lane);
-  } else {  // W == 16: a 32-word group fills two plane words
-    const uint32_t r = ballot_planes<16>((uint32_t)u0, lane);
-    if (lane < 16) {
-      sh[lane * P + 2 * g] = (U)(r >> 16);
-      sh[lane * P + 2 * g + 1] = (U)(r & 0xffffu);
+// W = 16: thread t owns words 32t .. 32t + 31 of the row (kThreads * 32
+// = L): loaded 16 bytes at a time, delta and zigzag on halfword pairs,
+// then two 16 x 16 transposes in registers (transpose16x2) give its two
+// columns q = 2t, 2t + 1 of every plane, stored as one 32-bit word a lane
+// (a warp's 32 lanes: 128 contiguous bytes of the plane) and balloted
+// into the bitmap; no staging.  Adds the row's count to `total`.
+__device__ __forceinline__ void encode_row16(const int16_t* src, long long e0,
+                                             long long elems, long long row,
+                                             uint16_t* __restrict__ bitmap,
+                                             uint16_t* __restrict__ words,
+                                             int mode, int* total) {
+  constexpr int L = Chunk<16>::L, P = Chunk<16>::P;
+  static_assert(kThreads * 32 == L, "one thread per 32 words");
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long e = e0 + 32 * t;
+  const int16_t* in = src + e;
+  uint32_t x[16];  // x[i]: words 2i (low half) and 2i + 1
+  if (e + 32 <= elems && ((uintptr_t)in & 15) == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint4 q = reinterpret_cast<const uint4*>(in)[i];
+      x[4 * i] = q.x, x[4 * i + 1] = q.y, x[4 * i + 2] = q.z, x[4 * i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t a = e + 2 * i < elems ? (uint16_t)in[2 * i] : 0u;
+      const uint32_t b = e + 2 * i + 1 < elems ? (uint16_t)in[2 * i + 1] : 0u;
+      x[i] = a | (b << 16);
     }
   }
+  if (mode == kDelta) {
+    // the predecessor of word 32t in a high half (none for word 0)
+    uint32_t prev = t > 0 && e - 1 < elems ? (uint32_t)(uint16_t)in[-1] << 16 : 0u;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t d = __vsub2(x[i], __byte_perm(prev, x[i], 0x5432));
+      prev = x[i];
+      // zigzag per halfword: (d << 1) ^ (d >> 15), the shift arithmetic
+      x[i] = ((d << 1) & 0xFFFEFFFEu) ^ __vcmplts2(d, 0u);
+    }
+  }
+  // rows of the two matrices: y[r] = words r (low) and 16 + r (high)
+  uint32_t y[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+    y[r] = __byte_perm(x[r / 2], x[8 + r / 2], (r & 1) ? 0x7632 : 0x5410);
+  transpose16x2(y);  // y[p]: plane p's words at columns 2t (low), 2t + 1
+  uint32_t* dst = reinterpret_cast<uint32_t*>(words + row * L);
+  uint16_t* bm = bitmap + row * P;
+  int cnt = 0;
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    dst[p * (P / 2) + t] = y[p];
+    const uint32_t b0 = __ballot_sync(kFull, (y[p] & 0xffffu) != 0);
+    const uint32_t b1 = __ballot_sync(kFull, (y[p] >> 16) != 0);
+    cnt += __popc(b0) + __popc(b1);
+    if (lane < 4) {  // bit i of z: word p * P + 64 * warp + 16 * lane + i
+      const uint32_t z = spread8((b0 >> (8 * lane)) & 0xffu) |
+                         (spread8((b1 >> (8 * lane)) & 0xffu) << 1);
+      bm[p * (P / 16) + 4 * warp + lane] = (uint16_t)(__brev(z) >> 16);
+    }
+  }
+  __syncthreads();  // `total` was zeroed
+  if (lane == 0) atomicAdd(total, cnt);
+}
+
+// W = 32: thread t (of 128) owns words 32t .. 32t + 31 of the row,
+// loaded 16 bytes at a time, and transposes them in registers
+// (transpose32): its column q = t of every plane, stored straight to
+// device memory, 128 contiguous bytes a warp, and balloted into the
+// bitmap.  Adds the row's count to `total`.
+__device__ __forceinline__ void encode_row32(const int32_t* src, long long e0,
+                                             long long elems, long long row,
+                                             uint32_t* __restrict__ bitmap,
+                                             uint32_t* __restrict__ words,
+                                             int mode, int* total) {
+  constexpr int L = Chunk<32>::L, P = Chunk<32>::P;
+  static_assert(block_threads<32>() * 32 == L, "one thread per 32 words");
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long e = e0 + 32 * t;
+  const int32_t* in = src + e;
+  uint32_t x[32];
+  if (e + 32 <= elems && ((uintptr_t)in & 15) == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint4 q = reinterpret_cast<const uint4*>(in)[i];
+      x[4 * i] = q.x, x[4 * i + 1] = q.y, x[4 * i + 2] = q.z, x[4 * i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = e + i < elems ? (uint32_t)in[i] : 0u;
+  }
+  if (mode == kDelta) {
+    // the predecessor of word 32t (none for word 0)
+    uint32_t prev = t > 0 && e - 1 < elems ? (uint32_t)in[-1] : 0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const uint32_t d = x[i] - prev;
+      prev = x[i];
+      // zigzag: (d << 1) ^ (d >> 31), the shift arithmetic
+      x[i] = (d << 1) ^ (uint32_t)((int32_t)d >> 31);
+    }
+  }
+  transpose32(x);  // x[p]: plane p's word at column t
+  uint32_t* dst = words + row * L;
+  uint32_t* bm = bitmap + row * P;
+  int cnt = 0;
+#pragma unroll
+  for (int p = 0; p < 32; ++p) {
+    dst[p * P + t] = x[p];
+    const uint32_t b = __ballot_sync(kFull, x[p] != 0);
+    cnt += __popc(b);
+    if (lane == 0) bm[p * (P / 32) + warp] = __brev(b);
+  }
+  __syncthreads();  // `total` was zeroed
+  if (lane == 0) atomicAdd(total, cnt);
+}
+
+// W = 64: the shuffle butterfly, a warp per run of units, the planes
+// staged in shared memory; adds the row's count to `total`.
+__device__ __forceinline__ void encode_row64(const int64_t* src, long long e0,
+                                             long long elems, long long row,
+                                             uint64_t* __restrict__ bitmap,
+                                             uint64_t* __restrict__ words,
+                                             int mode, uint64_t* stage,
+                                             int* total) {
+  constexpr int W = 64;
+  using S = int64_t;
+  using U = uint64_t;
+  constexpr int L = Chunk<W>::L, P = Chunk<W>::P, G = 64;  // G: unit words
+  constexpr int STRIDE = P + 1;
+  constexpr int UPW = L / G / kWarps;      // units per warp
+  constexpr int BATCH = UPW < 16 ? UPW : 16;
+  constexpr int V = G / 32;                // words per lane per unit
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long first = e0 + (long long)warp * UPW * G;
+  // the delta's predecessor of the warp's first word (none for the
+  // chunk's first word, which keeps its value)
+  U carry = 0;
+  if (mode == kDelta && warp > 0 && first - 1 < elems) carry = (U)src[first - 1];
+  for (int k0 = 0; k0 < UPW; k0 += BATCH) {
+    U v[BATCH][V];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+#pragma unroll
+      for (int h = 0; h < V; ++h) {
+        const long long e = first + (long long)(k0 + k) * G + 32 * h + lane;
+        v[k][h] = e < elems ? (U)src[e] : (U)0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      U x[2];
+#pragma unroll
+      for (int h = 0; h < V; ++h) {
+        U d = v[k][h];
+        if (mode == kDelta) {
+          const U up = shfl_up(d, 1);
+          const U prev = lane ? up : carry;
+          carry = shfl(d, 31);
+          d = (U)(d - prev);
+          // zigzag: (d << 1) ^ (d >> (W-1)), the right shift arithmetic
+          const U sign = (U)((S)d < 0 ? ~(U)0 : (U)0);
+          d = (U)((U)(d << 1) ^ sign);
+        }
+        x[h] = d;
+      }
+      const int u = warp * UPW + k0 + k;
+      transpose_lanes64(x[0], x[1], lane);
+      stage[lane * STRIDE + u] = x[0];
+      stage[(lane + 32) * STRIDE + u] = x[1];
+    }
+  }
+  __syncthreads();
+  CLOCK_MARK(0);
+
+  // the staged words in order to device memory, with the RZE bitmap (MSB
+  // first) and its popcount from the same registers
+  int cnt = 0;
+  U* bm = bitmap + row * P;
+  U* dst = words + row * L;
+  // a pass is one bitmap word, two planes of 32
+  for (int g = warp; g < L / 64; g += kWarps) {
+    const U w0 = stage[(2 * g) * STRIDE + lane];
+    const U w1 = stage[(2 * g + 1) * STRIDE + lane];
+    dst[g * 64 + lane] = w0;
+    dst[g * 64 + 32 + lane] = w1;
+    const uint32_t b0 = __ballot_sync(kFull, w0 != 0);
+    const uint32_t b1 = __ballot_sync(kFull, w1 != 0);
+    cnt += __popc(b0) + __popc(b1);
+    if (lane == 0) bm[g] = ((U)__brev(b0) << 32) | (U)__brev(b1);
+  }
+  if (lane == 0) atomicAdd(total, cnt);
 }
 
 // Encode one chunk row from `src` (the row's elements e0, e0 + 1, ...,
 // those at or past `elems` read as 0) into the bitmap, words and counts
-// rows.  `sh` is the CTA's shared staging buffer of L words.
+// rows.  `stage` is the CTA's shared staging buffer (used at W = 64).
 template <int W>
 __device__ __forceinline__ void encode_chunk(
     const typename Word<W>::S* src, long long e0, long long elems,
     long long row, typename Word<W>::U* __restrict__ bitmap,
     typename Word<W>::U* __restrict__ words, int32_t* __restrict__ counts,
-    int mode, typename Word<W>::U* sh, int* total) {
-  using U = typename Word<W>::U;
-  constexpr int L = 131072 / W;
-  constexpr int G = W == 64 ? 64 : 32;  // words per warp group
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int nwarps = kThreads / 32;
+    int mode, typename Word<W>::U* stage, int* total) {
   if (threadIdx.x == 0) *total = 0;
-
-  for (int g = warp; g < L / G; g += nwarps) {
-    const int j0 = g * G + lane;
-    const U u0 = transform_word<W>(src, e0 + j0, elems, j0, mode);
-    U u1 = 0;
-    if constexpr (W == 64) u1 = transform_word<W>(src, e0 + j0 + 32, elems, j0 + 32, mode);
-    shuffle_group<W>(sh, u0, u1, g, lane);
-  }
-  __syncthreads();
-
-  // RZE bitmap over the shuffled words, MSB first, and its popcount
-  int cnt = 0;
-  U* bm = bitmap + row * (L / W);
-  for (int g = warp; g < L / G; g += nwarps) {
-    const uint32_t b0 = __ballot_sync(kFull, sh[g * G + lane] != 0);
-    cnt += __popc(b0);
-    if constexpr (W == 64) {
-      const uint32_t b1 = __ballot_sync(kFull, sh[g * G + 32 + lane] != 0);
-      cnt += __popc(b1);
-      if (lane == 0) bm[g] = ((U)__brev(b0) << 32) | (U)__brev(b1);
-    } else if constexpr (W == 32) {
-      if (lane == 0) bm[g] = (U)__brev(b0);
-    } else {
-      if (lane == 0) {
-        const uint32_t r = __brev(b0);
-        bm[2 * g] = (U)(r >> 16);
-        bm[2 * g + 1] = (U)(r & 0xffffu);
-      }
-    }
-  }
-  if (lane == 0) atomicAdd(total, cnt);
-
-  U* dst = words + row * L;
-  for (int j = threadIdx.x; j < L; j += kThreads) dst[j] = sh[j];
+  if constexpr (W == 16)
+    encode_row16(src, e0, elems, row, bitmap, words, mode, total);
+  else if constexpr (W == 32)
+    encode_row32(src, e0, elems, row, bitmap, words, mode, total);
+  else
+    encode_row64(src, e0, elems, row, bitmap, words, mode, stage, total);
   __syncthreads();
   if (threadIdx.x == 0) counts[row] = *total;
+  CLOCK_MARK(1);
+  CLOCK_END();
 }
 
+
 template <int W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads<W>())
 encode_kernel(const typename Word<W>::S* __restrict__ ints,
               typename Word<W>::U* __restrict__ bitmap,
               typename Word<W>::U* __restrict__ words,
               int32_t* __restrict__ counts, long long elems, int cpt,
               int mode) {
-  constexpr int L = 131072 / W;
-  __shared__ typename Word<W>::U sh[L];
+  constexpr int L = Chunk<W>::L;
+  __shared__ __align__(16) typename Word<W>::U stage[Chunk<W>::STAGE];
   __shared__ int total;
   const long long row = blockIdx.x;
   const long long tile = row / cpt;
   const long long chunk = row - tile * cpt;
+  CLOCK_START();
   encode_chunk<W>(ints + tile * elems, chunk * L, elems, row, bitmap, words,
-                  counts, mode, sh, &total);
+                  counts, mode, stage, &total);
 }
 
 // ---- the value encode (plain f32 path)
@@ -229,7 +385,7 @@ __device__ __forceinline__ int32_t quantize_f32(float x, double eps) {
 }
 
 template <int W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads<W>())
 encode_values_kernel(const float* __restrict__ x,
                      const double* __restrict__ eps,
                      typename Word<W>::U* __restrict__ bitmap,
@@ -237,8 +393,8 @@ encode_values_kernel(const float* __restrict__ x,
                      int32_t* __restrict__ counts, long long elems, int cpt) {
   using S = typename Word<W>::S;
   using U = typename Word<W>::U;
-  constexpr int L = 131072 / W;
-  __shared__ U sh[L];
+  constexpr int L = Chunk<W>::L;
+  __shared__ __align__(16) U stage[Chunk<W>::STAGE];
   __shared__ S bins[L];
   __shared__ int total;
   const long long row = blockIdx.x;
@@ -247,7 +403,8 @@ encode_values_kernel(const float* __restrict__ x,
   const float* src = x + tile * elems;
   const double tile_eps = eps[tile];
   const bool tiny = tile_eps < 2.0 * FLT_MIN;  // uniform over the CTA
-  for (int j = threadIdx.x; j < L; j += kThreads) {
+  CLOCK_START();
+  for (int j = threadIdx.x; j < L; j += block_threads<W>()) {
     const long long e = e0 + j;
     const int32_t b = e >= elems ? 0
                       : tiny     ? quantize_f32<true>(src[e], tile_eps)
@@ -256,10 +413,16 @@ encode_values_kernel(const float* __restrict__ x,
     bins[j] = (S)(U)(uint32_t)b;
   }
   __syncthreads();
-  encode_chunk<W>(bins, 0, L, row, bitmap, words, counts, kDelta, sh, &total);
+  CLOCK_MARK(2);
+  encode_chunk<W>(bins, 0, L, row, bitmap, words, counts, kDelta, stage, &total);
 }
 
 }  // namespace
+
+CLOCK_EXPORTS(
+    "W = 64: load+transform+transpose+stage loop,"
+    "W = 16 and 32: the whole row; W = 64: copy-out+bitmap+count,"
+    "quantize (kernel 4)")
 
 extern "C" {
 
@@ -282,19 +445,19 @@ int lopc_encode_ints(const void* ints, void* bitmap, void* words,
   const int m = (int)mode, c = (int)cpt;
   switch (word_bits) {
     case 16:
-      encode_kernel<16><<<(unsigned)rows, kThreads, 0, st>>>(
+      encode_kernel<16><<<(unsigned)rows, block_threads<16>(), 0, st>>>(
           static_cast<const int16_t*>(ints), static_cast<uint16_t*>(bitmap),
           static_cast<uint16_t*>(words), static_cast<int32_t*>(counts),
           elems, c, m);
       break;
     case 32:
-      encode_kernel<32><<<(unsigned)rows, kThreads, 0, st>>>(
+      encode_kernel<32><<<(unsigned)rows, block_threads<32>(), 0, st>>>(
           static_cast<const int32_t*>(ints), static_cast<uint32_t*>(bitmap),
           static_cast<uint32_t*>(words), static_cast<int32_t*>(counts),
           elems, c, m);
       break;
     case 64:
-      encode_kernel<64><<<(unsigned)rows, kThreads, 0, st>>>(
+      encode_kernel<64><<<(unsigned)rows, block_threads<64>(), 0, st>>>(
           static_cast<const int64_t*>(ints), static_cast<uint64_t*>(bitmap),
           static_cast<uint64_t*>(words), static_cast<int32_t*>(counts),
           elems, c, m);
@@ -320,13 +483,13 @@ int lopc_encode_values(const void* x, const void* eps, void* bitmap,
   const double* es = static_cast<const double*>(eps);
   switch (word_bits) {
     case 16:
-      encode_values_kernel<16><<<(unsigned)rows, kThreads, 0, st>>>(
+      encode_values_kernel<16><<<(unsigned)rows, block_threads<16>(), 0, st>>>(
           xs, es, static_cast<uint16_t*>(bitmap),
           static_cast<uint16_t*>(words), static_cast<int32_t*>(counts),
           elems, (int)cpt);
       break;
     case 32:
-      encode_values_kernel<32><<<(unsigned)rows, kThreads, 0, st>>>(
+      encode_values_kernel<32><<<(unsigned)rows, block_threads<32>(), 0, st>>>(
           xs, es, static_cast<uint32_t*>(bitmap),
           static_cast<uint32_t*>(words), static_cast<int32_t*>(counts),
           elems, (int)cpt);

@@ -78,6 +78,8 @@ def decode_tiles_fused(bitmap, packed, sub_bitmap, sub_packed, eps,
         if bm.dtype != pk.dtype or bm.dtype not in (torch.int16, torch.int32,
                                                     torch.int64):
             raise ValueError("stream words must be int16/32/64 in both arrays")
+        if bm.data_ptr() % 16 or pk.data_ptr() % 16:
+            raise ValueError("stream arrays must start on a 16-byte boundary")
         w = width(pk.dtype)
         chunk_len = 131072 // w
         rows = pk.shape[0]

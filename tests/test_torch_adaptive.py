@@ -5,8 +5,8 @@ interpret mode on its biased unsigned state; ``engine.compress(...,
 adaptive_eb="tda")`` byte-equal to the reference for the five stress
 families of ``test_order_properties.py`` in f32 and f64 and for a field
 whose subbin sections are 8 bytes wide, and the decode bit-equal to the
-reference's; and, where a CUDA device exists, both lanes' kernels
-against their plain version.
+reference's.  Both lanes' kernels against their plain version, on the
+card: tests/test_torch_cuda.py.
 
 Inputs are made from seeds with numpy and handed to both packages.
 Every comparison is exact.
@@ -29,7 +29,6 @@ from repro_torch.core import bitstream as pt_bitstream
 from repro_torch.core import topology
 from repro_torch.core.floatbits import float_to_ordered
 from repro_torch.engine import device as pt_device
-from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import subbin_sweep as pt_ss
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -163,22 +162,3 @@ def test_subnormal_field_compresses_as_the_reference():
     assert pt_engine.compress(x, EB, device="cpu") == \
         ref_engine.compress(x, EB, solver="jacobi")
     _check_same(x, {"solver": "jacobi"})
-
-
-# ---------------------------------------------------------- on the card
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_cuda_ordered_lanes_match_plain(rng, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the card "
-                    "(chip_smoke.py compares them there)")
-    for tile in ((4, 8, 16), (1, 16, 16), (1, 1, 4096)):
-        s_h, flags = _ordered_batch(rng, dtype, b=5, tile=tile)
-        LAUNCHES.clear()
-        got, got_it = pt_ss.solve_tiles_blockwise(s_h.cuda(), flags.cuda())
-        want, want_it = pt_ss.solve_tiles_blockwise_plain(s_h.cuda(), flags.cuda())
-        assert torch.equal(got, want) and torch.equal(got_it, want_it)
-        key = ("solve_tiles_blockwise_64" if dtype == np.float64
-               else "solve_tiles_blockwise")
-        assert LAUNCHES[key] == 1

@@ -1,0 +1,414 @@
+"""Every hand-written CUDA kernel of the port against its plain PyTorch
+version, on the card, bit for bit.
+
+These tests compare the port with itself, so this file imports neither
+jax nor the reference package: it runs on a machine that has a card and
+no JAX.  Every test is marked ``cuda`` and skips where no CUDA device is
+present.  On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Inputs are made from seeds with numpy.  The fused decode (kernels 3 and
+3') and encode (kernels 2 and 4) also run over every pair of stream
+widths, tiles that are not a whole number of chunks (the 1-D and 2-D
+plan tiles), batch 1, an all-zero chunk, a chunk whose bitmap has every
+bit set, and words at the zigzag and wrap extremes.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import quantize, topology
+from repro_torch.core.floatbits import float_to_ordered
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import fused_decode as pt_fd
+from repro_torch.kernels import fused_encode as pt_fe
+from repro_torch.kernels import subbin_sweep as pt_ss
+
+CHUNK = {2: 8192, 4: 4096, 8: 2048}
+SIGNED = {2: np.int16, 4: np.int32, 8: np.int64}
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card "
+                    "(chip_smoke.py compares them there too)")
+    return torch.device("cuda")
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, order="C"))
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype.is_floating_point:
+        idt = torch.int32 if a.element_size() == 4 else torch.int64
+        a, b = a.view(idt), b.view(idt)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ------------------------------------------------------------ inputs
+
+def _solve_inputs(rng, batch: int, tile):
+    """A haloed subbin batch and order flags of tied random tiles."""
+    h = tuple(t + 2 for t in tile)
+    x = np.round(rng.standard_normal((batch,) + h) * 1.5) / 2
+    bins = np.round(x).astype(np.int32)
+    flags = np.stack([topology.order_flags(_t(b), _t(v)).numpy()
+                      for b, v in zip(bins, x)])[:, 1:-1, 1:-1, 1:-1]
+    sub_h = rng.integers(0, 4, (batch,) + h).astype(np.int32)
+    return sub_h, np.ascontiguousarray(flags).astype(np.int32)
+
+
+def _ints(rng, batch, elems, word):
+    dt = SIGNED[word]
+    hi = min(np.iinfo(dt).max, 2**40)
+    base = np.cumsum(rng.integers(-3, 4, (batch, elems)), axis=1)
+    vals = (base + rng.integers(-hi // 2, hi // 2, (batch, 1))).astype(dt)
+    vals[0, : elems // 3] = 0            # zero runs -> sparse bitmaps
+    vals[-1, 1::7] = np.iinfo(dt).min    # wrapping deltas
+    return vals
+
+
+def _extremes(batch, elems, word):
+    """Words at the zigzag and wrap extremes: -2^(W-1), 2^(W-1) - 1, -1,
+    0 and 1 in turn, so deltas wrap both ways."""
+    info = np.iinfo(SIGNED[word])
+    cycle = np.array([info.min, info.max, -1, 0, 1, info.min, 0, info.max],
+                     dtype=SIGNED[word])
+    return np.resize(cycle, (batch, elems)).astype(SIGNED[word])
+
+
+def _values(rng, batch, elems, scale):
+    """f32 interiors with NaN pad cells, one NaN pad row, non-finite
+    cells, signed zeros, denormals and exact half-bin ties."""
+    x = (rng.standard_normal((batch, elems)) * scale).astype(np.float32)
+    x[:, elems - 37:] = np.nan          # tile pad
+    x[-1] = np.nan                      # a pad tile
+    x[0, 3], x[0, 4], x[0, 5] = np.inf, -np.inf, -0.0
+    x[0, 6:40] = np.float32(1e-41) * np.arange(34)
+    return x
+
+
+def _pack(rows: np.ndarray) -> np.ndarray:
+    """Front-pack each row's nonzero words, as the container stores them."""
+    out = np.zeros_like(rows)
+    for r in range(rows.shape[0]):
+        nz = rows[r][rows[r] != 0]
+        out[r, : nz.size] = nz
+    return out
+
+
+def _stream(ints: np.ndarray, transform: str):
+    """(bitmap, front-packed words) rows of a (batch, elems) int batch,
+    by the port's plain encode."""
+    w = ints.dtype.itemsize
+    bm, words, _ = pt_fe.encode_ints_plain(_t(ints), CHUNK[w], transform)
+    return bm.numpy(), _pack(words.numpy())
+
+
+def _streams(rng, batch, tile_elems, bins_word, subs_word, case="random"):
+    """Bins (delta) and subbin (raw) streams of one case."""
+    if case == "extremes":
+        bins = _extremes(batch, tile_elems, bins_word)
+        subs = _extremes(batch, tile_elems, subs_word)
+    else:
+        bins = _ints(rng, batch, tile_elems, bins_word) // 4
+        subs = rng.integers(0, 9, (batch, tile_elems)).astype(SIGNED[subs_word])
+        if case == "zero chunk":  # the first tile all zeros: empty rows
+            bins[0], subs[0] = 0, 0
+    streams = [*_stream(bins, "delta"), *_stream(subs, "raw")]
+    if case == "full bitmap":  # every word of the first tile's rows nonzero
+        for k, word in ((0, bins_word), (2, subs_word)):
+            bm, pk = streams[k], streams[k + 1]
+            cpt = bm.shape[0] // batch
+            bm[:cpt] = -1
+            pk[:cpt] = rng.integers(1, 2**15, pk[:cpt].shape).astype(pk.dtype)
+            pk[:cpt] *= rng.choice(np.array([-1, 1], dtype=pk.dtype),
+                                   pk[:cpt].shape)
+    return streams
+
+
+def _eps(batch, dtype):
+    eps = np.array([1e-3, 2.5e-2, 0.7, 3.0]) if dtype == torch.float32 \
+        else np.array([1e-9, 3e-4, 2.0, 0.5])
+    return np.resize(eps, batch)
+
+
+# ------------------------------------------------------ moved cases
+
+@pytest.mark.parametrize("kernel", ["solve", "encode", "decode",
+                                    "encode_values", "decode_plain"])
+def test_cuda_kernel_matches_plain(rng, dev, kernel):
+    if kernel == "solve":
+        sub_h, flags = _solve_inputs(rng, 64, (16, 16, 64))
+        args = (_t(sub_h).to(dev), _t(flags).to(dev))
+        plain = pt_ss.solve_tiles_blockwise_plain(*args)
+        got = pt_ss.solve_tiles_blockwise(*args)
+    elif kernel == "encode":
+        ints = _t(_ints(rng, 64, 16384, 2)).to(dev)
+        plain = pt_fe.encode_ints_plain(ints, 8192, "delta")
+        got = pt_fe.encode_ints_fused(ints, 8192, "delta")
+    elif kernel == "encode_values":
+        x = _t(_values(rng, 64, 16384, 30.0)).to(dev)
+        eps = torch.full((64,), 1e-2, dtype=torch.float64, device=dev)
+        plain = pt_fe.encode_values_plain(x, eps, 8192, torch.float32,
+                                          torch.int16)
+        got = pt_fe.encode_values_fused(x, eps, 8192, torch.float32,
+                                        torch.int16)
+    elif kernel == "decode_plain":
+        bm, pk, _, _ = _streams(rng, 8, 16384, 2, 2)
+        args = [_t(a).to(dev) for a in (bm, pk)]
+        eps = torch.full((8,), 1e-3, dtype=torch.float64, device=dev)
+        plain = (pt_fd.decode_tiles_plain(*args, None, None, eps, 16384,
+                                          torch.float32),)
+        got = (pt_fd.decode_tiles_fused(*args, None, None, eps, 16384,
+                                        torch.float32),)
+    else:
+        args = [_t(a).to(dev) for a in _streams(rng, 8, 16384, 2, 2)]
+        eps = torch.full((8,), 1e-3, dtype=torch.float64, device=dev)
+        plain = (pt_fd.decode_tiles_plain(*args, eps, 16384, torch.float32),)
+        got = (pt_fd.decode_tiles_fused(*args, eps, 16384, torch.float32),)
+    for a, b in zip(got, plain):
+        assert _bits_equal(a, b)
+
+
+def _bins_values(x: np.ndarray, eps_abs: float):
+    """The bins of ``x`` as numpy, beside ``x``."""
+    return quantize.quantize(_t(x), eps_abs).numpy(), x
+
+
+def _long_chain():
+    """128x4x4 descending in x: one chain across the whole X extent."""
+    x = -np.cumsum(np.full((128, 4, 4), 1e-9), axis=0)
+    return _bins_values(x, 1.0)
+
+
+def _serpentine(x: int, y: int, z: int):
+    """(x, y, z) field constant in X whose values fall along a corridor
+    that winds through the whole Y x Z plane inside one bin, the rest of
+    the odd rows a wall in another bin: one chain through every corridor
+    cell of every band's plane."""
+    v = np.full((y, z), 3.0)
+    step = 0
+    for r in range(0, y, 2):
+        cols = range(z) if r % 4 == 0 else range(z - 1, -1, -1)
+        for c in cols:
+            v[r, c] = -step * 1e-9
+            step += 1
+        if r + 1 < y:
+            v[r + 1, cols[-1]] = -step * 1e-9
+            step += 1
+    return _bins_values(np.broadcast_to(v, (x, y, z)).copy(), 1.0)
+
+
+def _in_tile_chain(ty: int, tz: int):
+    """(24, ty, tz) field whose middle band falls along a 3-D
+    boustrophedon through all of its 8 x ty x tz cells inside one bin,
+    the other bands a wall in another bin: one chain of 8 * ty * tz - 1
+    hops inside one tile of an inner band."""
+    v = np.full((24, ty, tz), 3.0)
+    step = 0
+    for a in range(8):
+        ys = range(ty) if a % 2 == 0 else range(ty - 1, -1, -1)
+        for n, b in enumerate(ys):
+            zs = range(tz) if (a * ty + n) % 2 == 0 else range(tz - 1, -1, -1)
+            for c in zs:
+                v[8 + a, b, c] = -step * 1e-9
+                step += 1
+    return _bins_values(v, 1.0)
+
+
+def _front():
+    """64x4x4 rising in X inside one bin, with X-row 0 falling in Z."""
+    x = np.arange(64, dtype=np.float64)[:, None, None] * 1e-9 + np.zeros((64, 4, 4))
+    x[0] = -np.arange(4, dtype=np.float64)[None, :] * 1e-12
+    return _bins_values(x, 1.0)
+
+
+def _words(rng, c: int) -> np.ndarray:
+    w = rng.integers(0, 2**32, (c, 4096), dtype=np.uint64).astype(np.uint32)
+    w[rng.random((c, 4096)) < 0.4] = 0
+    w[0, :700] = 0  # a dead run: all-zero bitmap words
+    return w
+
+
+@pytest.mark.parametrize("kernel", ["solve_blockwise", "bitshuffle_u32",
+                                    "bitunshuffle_u32", "rze_bitmap_u32"])
+def test_cuda_whole_field_kernel_matches_plain(rng, dev, monkeypatch, kernel):
+    from repro_torch.kernels import bitshuffle_kernel, ref, rze_kernel
+
+    if kernel == "solve_blockwise":
+        for bins, x in (_bins_values(rng.uniform(-1, 1, (37, 33, 29)), 0.5),
+                        _long_chain(), _serpentine(16, 40, 150), _front()):
+            flags = topology.order_flags(_t(bins).to(dev), _t(x).to(dev))
+            got, got_sweeps = pt_ss.solve_blockwise(flags)
+            want, want_sweeps = pt_ss.solve_blockwise_plain(flags)
+            assert torch.equal(got, want) and got_sweeps == want_sweeps
+        # a chain of 8191 hops in one tile, under the kernel's pass cap
+        # and under a cap of 8 passes
+        bins, x = _in_tile_chain(16, 64)
+        flags = topology.order_flags(_t(bins).to(dev), _t(x).to(dev))
+        want, want_sweeps = pt_ss.solve_blockwise_plain(flags)
+        for cap in (pt_ss.BAND_MAX_PASSES, 8):
+            monkeypatch.setattr(pt_ss, "BAND_MAX_PASSES", cap)
+            got, got_sweeps = pt_ss.solve_blockwise(flags)
+            assert torch.equal(got, want) and got_sweeps == want_sweeps
+        return
+    words = _t(_words(rng, 9).view(np.int32)).to(dev)
+    if kernel == "rze_bitmap_u32":
+        got = rze_kernel.rze_bitmap_u32(words)
+        want = ref.rze_bitmap_ref(words)
+    elif kernel == "bitshuffle_u32":
+        got = (bitshuffle_kernel.bitshuffle_u32(words),)
+        want = (ref.bitshuffle_ref(words),)
+    else:
+        got = (bitshuffle_kernel.bitunshuffle_u32(words),)
+        want = (ref.bitunshuffle_ref(words),)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _ordered_batch(rng, dtype, b: int = 3, tile=(2, 4, 8)):
+    """A haloed batch of ordered-space states and their all-pairs flags:
+    values with SoS ties, each state seeded at the value's floor, and
+    some cells outside the field (+inf values, the neutral ``iinfo.min``
+    state)."""
+    shape = (b,) + tuple(t + 2 for t in tile)
+    x = (np.round(rng.standard_normal(shape) * 16) / 16).astype(dtype)
+    x[rng.random(shape) < 0.1] = np.inf
+    xt = _t(x)
+    flags = torch.stack([topology.order_flags_all(xt[i]) for i in range(b)])
+    flags = flags[:, 1:-1, 1:-1, 1:-1].contiguous()
+    s = float_to_ordered(torch.where(torch.isinf(xt), 0.0, xt.floor()))
+    s = torch.where(torch.isinf(xt), torch.iinfo(s.dtype).min, s)
+    return s, flags
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_ordered_lanes_match_plain(rng, dev, dtype):
+    for tile in ((4, 8, 16), (1, 16, 16), (1, 1, 4096)):
+        s_h, flags = _ordered_batch(rng, dtype, b=5, tile=tile)
+        LAUNCHES.clear()
+        got, got_it = pt_ss.solve_tiles_blockwise(s_h.to(dev), flags.to(dev))
+        want, want_it = pt_ss.solve_tiles_blockwise_plain(s_h.to(dev),
+                                                          flags.to(dev))
+        assert torch.equal(got, want) and torch.equal(got_it, want_it)
+        key = ("solve_tiles_blockwise_64" if dtype == np.float64
+               else "solve_tiles_blockwise")
+        assert LAUNCHES[key] == 1
+
+
+def test_cuda_ff32_kernels_match_plain(rng, dev):
+    from repro_torch.kernels import fused_decode, quantize_kernel, ref
+
+    for n in (1, 5, 4099, 1_000_003):
+        x = (rng.standard_normal(n) * 10).astype(np.float32)
+        x[: min(n, 3)] = [np.nan, np.inf, 3e9][: min(n, 3)]
+        for off in (0, 1):  # 16-byte aligned and not
+            xt = _t(x).to(dev)[off:]
+            got = quantize_kernel.quantize_ff32(xt, 0.01)
+            assert torch.equal(got, ref.quantize_ff32_ref(xt, 0.01))
+            s = torch.randint(-3, 9, got.shape, dtype=torch.int32, device=dev)
+            y = fused_decode.dequantize_ff32(got, s, 0.01)
+            want = ref.dequantize_ff32_ref(got, s, 0.01)
+            assert torch.equal(y.view(torch.int32), want.view(torch.int32))
+
+
+# ------------------------------- kernels 3 and 3': every width and edge
+
+WORDS = (2, 4, 8)
+# (batch, tile elems): the 3-D plan tile, the 1-D and 2-D ones (4096
+# cells, not a whole number of 16-bit chunks), an odd count, batch 1
+SHAPES = [(4, 16384), (3, 4096), (2, 8192 + 100), (1, 16384)]
+CASES = ["random", "zero chunk", "full bitmap", "extremes"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("subs_word", WORDS)
+@pytest.mark.parametrize("bins_word", WORDS)
+def test_cuda_decode_every_width_pair(rng, dev, bins_word, subs_word, dtype):
+    for (batch, elems) in SHAPES:
+        for case in CASES:
+            args = [_t(a).to(dev) for a in
+                    _streams(rng, batch, elems, bins_word, subs_word, case)]
+            eps = _t(_eps(batch, dtype)).to(dev)
+            LAUNCHES.clear()
+            got = pt_fd.decode_tiles_fused(*args, eps, elems, dtype)
+            assert LAUNCHES["decode_tiles_fused"] == 1
+            want = pt_fd.decode_tiles_plain(*args, eps, elems, dtype)
+            assert _bits_equal(got, want), (batch, elems, case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bins_word", WORDS)
+def test_cuda_decode_without_subbins_every_width(rng, dev, bins_word, dtype):
+    for (batch, elems) in SHAPES:
+        for case in CASES:
+            bm, pk, _, _ = _streams(rng, batch, elems, bins_word, 2, case)
+            args = [_t(bm).to(dev), _t(pk).to(dev), None, None]
+            eps = _t(_eps(batch, dtype)).to(dev)
+            LAUNCHES.clear()
+            got = pt_fd.decode_tiles_fused(*args, eps, elems, dtype)
+            assert LAUNCHES["decode_tiles_fused_nosub"] == 1
+            want = pt_fd.decode_tiles_plain(*args, eps, elems, dtype)
+            assert _bits_equal(got, want), (batch, elems, case)
+
+
+# ------------------------------ kernels 2 and 4: every width and edge
+
+@pytest.mark.parametrize("transform", ["delta", "raw"])
+@pytest.mark.parametrize("word", WORDS)
+def test_cuda_encode_every_width(rng, dev, word, transform):
+    for batch, elems in SHAPES + [(3, 100)]:
+        for case in ("random", "zero", "dense", "extremes"):
+            if case == "extremes":
+                ints = _extremes(batch, elems, word)
+            elif case == "dense":  # every plane word nonzero, about
+                info = np.iinfo(SIGNED[word])
+                ints = rng.integers(info.min, info.max, (batch, elems),
+                                    dtype=SIGNED[word], endpoint=True)
+            else:
+                ints = _ints(rng, batch, elems, word)
+                if case == "zero":
+                    ints[0] = 0
+            x = _t(ints).to(dev)
+            LAUNCHES.clear()
+            got = pt_fe.encode_ints_fused(x, CHUNK[word], transform)
+            assert LAUNCHES["encode_ints_fused"] == 1
+            want = pt_fe.encode_ints_plain(x, CHUNK[word], transform)
+            for a, b in zip(got, want):
+                assert _bits_equal(a, b), (batch, elems, case)
+
+
+@pytest.mark.parametrize("word", [2, 4])
+def test_cuda_encode_values_every_width(rng, dev, word):
+    for batch, elems in SHAPES:
+        x = _t(_values(rng, batch, elems, 30.0 if word == 2 else 3e4)).to(dev)
+        eps = _t(rng.uniform(1e-3, 1.0, batch)).to(dev)
+        store = torch.int16 if word == 2 else torch.int32
+        LAUNCHES.clear()
+        got = pt_fe.encode_values_fused(x, eps, CHUNK[word], torch.float32,
+                                        store)
+        assert LAUNCHES["encode_values_fused"] == 1
+        want = pt_fe.encode_values_plain(x, eps, CHUNK[word], torch.float32,
+                                         store)
+        for a, b in zip(got, want):
+            assert _bits_equal(a, b), (batch, elems)
+
+
+def test_cuda_decode_refuses_streams_off_a_16_byte_boundary(rng, dev):
+    """The decode copies stream rows 16 bytes at a time: a view that does
+    not start on a 16-byte boundary raises instead of reading astray."""
+    bm, pk, sbm, spk = _streams(rng, 2, 16384, 2, 2)
+    flat = _t(np.concatenate([[0], pk.reshape(-1)]).astype(np.int16)).to(dev)
+    shifted = flat[1:].view(pk.shape)  # 2 bytes past the allocation
+    eps = _t(_eps(2, torch.float32)).to(dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        pt_fd.decode_tiles_fused(_t(bm).to(dev), shifted, _t(sbm).to(dev),
+                                 _t(spk).to(dev), eps, 16384, torch.float32)

@@ -4,8 +4,8 @@ the reference's Pallas kernels in interpret mode (through
 ``repro.kernels.ops``), bit for bit, including NaN, infinite and
 out-of-domain inputs; the FF32 round trip (quantize -> subbin solve ->
 dequantize) keeping the bound, the local order and the critical points
-through the port's own ``tda``; and, where a CUDA device exists, each
-CUDA kernel against its plain version.
+through the port's own ``tda``.  Each CUDA kernel against its plain
+version, on the card: tests/test_torch_cuda.py.
 
 Inputs are made from seeds with numpy and handed to both packages.
 Every comparison is exact.
@@ -163,24 +163,3 @@ def test_ff32_wrappers_take_the_plain_version_on_the_cpu():
     fused_decode.dequantize_ff32(b, torch.zeros_like(b), 0.1)
     assert LAUNCHES["quantize_ff32"] == 0 and LAUNCHES["dequantize_ff32"] == 0
     assert torch.equal(b, ref.quantize_ff32_ref(x, 0.1))
-
-
-# ---------------------------------------------------------- on the card
-
-@pytest.mark.cuda
-def test_cuda_ff32_kernels_match_plain(rng):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the card "
-                    "(chip_smoke.py compares them there)")
-    dev = torch.device("cuda")
-    for n in (1, 5, 4099, 1_000_003):
-        x = (rng.standard_normal(n) * 10).astype(np.float32)
-        x[: min(n, 3)] = [np.nan, np.inf, 3e9][: min(n, 3)]
-        for off in (0, 1):  # 16-byte aligned and not
-            xt = _t(x).to(dev)[off:]
-            got = quantize_kernel.quantize_ff32(xt, 0.01)
-            assert torch.equal(got, ref.quantize_ff32_ref(xt, 0.01))
-            s = torch.randint(-3, 9, got.shape, dtype=torch.int32, device=dev)
-            y = fused_decode.dequantize_ff32(got, s, 0.01)
-            want = ref.dequantize_ff32_ref(got, s, 0.01)
-            assert torch.equal(y.view(torch.int32), want.view(torch.int32))

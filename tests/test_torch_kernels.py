@@ -1,6 +1,7 @@
 """Each kernel's plain PyTorch version against its Pallas kernel run in
-interpret mode (as the JAX tests run it on the CPU), bit for bit; and,
-where a CUDA device exists, each CUDA kernel against its plain version.
+interpret mode (as the JAX tests run it on the CPU), bit for bit.  Each
+CUDA kernel against its plain version, on the card:
+tests/test_torch_cuda.py.
 
 Tiles are small (4x4x8) so interpret mode stays fast.
 """
@@ -203,49 +204,3 @@ def test_plain_path_counts_no_launches(rng):
     pt_fe.encode_values_fused(_t(_values(rng, 2, 64, 1.0)), _t(np.ones(2)),
                               8192, torch.float32, torch.int16)
     assert sum(LAUNCHES.values()) == 0
-
-
-# ---------------------------------------------------------- on the card
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["solve", "encode", "decode",
-                                    "encode_values", "decode_plain"])
-def test_cuda_kernel_matches_plain(rng, kernel):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the card "
-                    "(chip_smoke.py compares them there)")
-    dev = torch.device("cuda")
-    if kernel == "solve":
-        sub_h, flags = _solve_inputs(rng, 64, (16, 16, 64))
-        args = (_t(sub_h), _t(flags.view(np.int32)))
-        plain = pt_ss.solve_tiles_blockwise_plain(*(a.to(dev) for a in args))
-        got = pt_ss.solve_tiles_blockwise(*(a.to(dev) for a in args))
-    elif kernel == "encode":
-        ints = _t(_ints(rng, 64, 16384, 2)).to(dev)
-        plain = pt_fe.encode_ints_plain(ints, 8192, "delta")
-        got = pt_fe.encode_ints_fused(ints, 8192, "delta")
-    elif kernel == "encode_values":
-        x = _t(_values(rng, 64, 16384, 30.0)).to(dev)
-        eps = torch.full((64,), 1e-2, dtype=torch.float64, device=dev)
-        plain = pt_fe.encode_values_plain(x, eps, 8192, torch.float32,
-                                          torch.int16)
-        got = pt_fe.encode_values_fused(x, eps, 8192, torch.float32,
-                                        torch.int16)
-    elif kernel == "decode_plain":
-        bm, pk, _, _ = _streams(rng, 8, 16384, 2, 2)
-        args = [_t(a.view(np.int16)).to(dev) for a in (bm, pk)]
-        eps = torch.full((8,), 1e-3, dtype=torch.float64, device=dev)
-        plain = (pt_fd.decode_tiles_plain(*args, None, None, eps, 16384,
-                                          torch.float32),)
-        got = (pt_fd.decode_tiles_fused(*args, None, None, eps, 16384,
-                                        torch.float32),)
-    else:
-        bm, pk, sbm, spk = _streams(rng, 8, 16384, 2, 2)
-        args = [_t(a.view(np.int16)).to(dev) for a in (bm, pk, sbm, spk)]
-        eps = torch.full((8,), 1e-3, dtype=torch.float64, device=dev)
-        plain = (pt_fd.decode_tiles_plain(*args, eps, 16384, torch.float32),)
-        got = (pt_fd.decode_tiles_fused(*args, eps, 16384, torch.float32),)
-    for a, b in zip(got, plain):
-        if a.dtype.is_floating_point:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        assert torch.equal(a, b)

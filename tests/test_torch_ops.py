@@ -2,8 +2,8 @@
 the port against the JAX reference, on the CPU: the plain versions of
 the band solve, the BIT_4 transpose and the RZE bitmap against the
 reference's Pallas kernels in interpret mode (through
-``repro.kernels.ops``), bit for bit, with equal sweep counts; and, where
-a CUDA device exists, each CUDA kernel against its plain version.
+``repro.kernels.ops``), bit for bit, with equal sweep counts.  Each CUDA
+kernel against its plain version, on the card: tests/test_torch_cuda.py.
 
 Inputs are made from seeds with numpy and handed to both packages.
 Every comparison is exact.
@@ -371,47 +371,3 @@ def test_pipeline_sections_match_reference(rng, dtype, n):
         assert np.array_equal(np.asarray(ref_dec(got, n, shape, dtype)), arr)
     assert pt_pipeline.chunk_len_for(torch.int32) == ref_pipeline.chunk_len_for(jnp.int32)
     assert pt_pipeline.chunk_len_for(np.int64) == ref_pipeline.chunk_len_for(jnp.int64)
-
-
-# ---------------------------------------------------------- on the card
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["solve_blockwise", "bitshuffle_u32",
-                                    "bitunshuffle_u32", "rze_bitmap_u32"])
-def test_cuda_whole_field_kernel_matches_plain(rng, monkeypatch, kernel):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the card "
-                    "(chip_smoke.py compares them there)")
-    from repro_torch.core import topology
-    from repro_torch.kernels import bitshuffle_kernel, ref, rze_kernel
-
-    dev = torch.device("cuda")
-    if kernel == "solve_blockwise":
-        for bins, x in (_bins_values(rng.uniform(-1, 1, (37, 33, 29)), 0.5),
-                        _long_chain(), _serpentine(16, 40, 150), _front()):
-            flags = topology.order_flags(_t(bins).to(dev), _t(x).to(dev))
-            got, got_sweeps = pt_ss.solve_blockwise(flags)
-            want, want_sweeps = pt_ss.solve_blockwise_plain(flags)
-            assert torch.equal(got, want) and got_sweeps == want_sweeps
-        # a chain of 8191 hops in one tile, under the kernel's pass cap
-        # and under a cap of 8 passes
-        bins, x = _in_tile_chain(16, 64)
-        flags = topology.order_flags(_t(bins).to(dev), _t(x).to(dev))
-        want, want_sweeps = pt_ss.solve_blockwise_plain(flags)
-        for cap in (pt_ss.BAND_MAX_PASSES, 8):
-            monkeypatch.setattr(pt_ss, "BAND_MAX_PASSES", cap)
-            got, got_sweeps = pt_ss.solve_blockwise(flags)
-            assert torch.equal(got, want) and got_sweeps == want_sweeps
-        return
-    words = _t(_words(rng, 9, "random").view(np.int32)).to(dev)
-    if kernel == "rze_bitmap_u32":
-        got = rze_kernel.rze_bitmap_u32(words)
-        want = ref.rze_bitmap_ref(words)
-    elif kernel == "bitshuffle_u32":
-        got = (bitshuffle_kernel.bitshuffle_u32(words),)
-        want = (ref.bitshuffle_ref(words),)
-    else:
-        got = (bitshuffle_kernel.bitunshuffle_u32(words),)
-        want = (ref.bitunshuffle_ref(words),)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
