@@ -122,7 +122,14 @@ Phases; any failure exits nonzero before the last line is printed:
    (``fused_cases``): every pair of bins and subbin widths at f32 and
    f64, the 1-D and 2-D plan tiles, an odd tile, batch 1, an all-zero
    tile, bitmap rows with every bit set, words at the zigzag and wrap
-   extremes.  Times each kernel by its device time per launch
+   extremes; kernel 4 also the cells where its fast quantize and the
+   reference's sequence meet (half-integer quotients and 1-2 ulps either
+   side, exact bases, +-0, subnormal and non-finite cells, |q| near 2^30
+   and 2^31), a tile per eps from 1e-6 to 1 and two TINY ones, at both
+   store widths.  The BIT_4 transpose (kernel 8) runs 1, 2, 3 and 6104
+   chunks of all-zero, all-one, single-bit, 0x80000000 and
+   alternating-byte words (``bit4_cases``) both ways, and the two kernels
+   in turn must give the words back.  Times each kernel by its device time per launch
    (torch.profiler) and the plain version with CUDA events, and computes
    each kernel's bound from the operands; those four kernels on every
    recorded signature.  The band
@@ -1513,6 +1520,22 @@ def fused_cases(name: str) -> list:
                 cases.append((f"adversarial ({batch}, {elems}) int{w} bins",
                               (torch.from_numpy(x).cuda(), eps, 131072 // w,
                                torch.float32, getattr(torch, SIGNED[w]))))
+            # cells where the fast quantize and its fallback meet
+            # (``adversarial_cells``), a tile per eps (1e-6 .. 1 and
+            # bounds within 2x of the smallest normal), whole and odd tiles
+            models = _partition_models()
+            tiny = models.F32_TINY
+            epss = list(np.geomspace(1e-6, 1.0, 7)) + [
+                2.0**-10, 1.5 * tiny, 2 * tiny, 4 * tiny]
+            for elems in (16384, 8192 + 101):
+                x = np.stack([np.resize(models.adversarial_cells(rng, e), elems)
+                              for e in epss]).astype(np.float32)
+                cases.append((f"adversarial cells ({len(epss)}, {elems}) "
+                              f"int{w} bins, TINY tiles included",
+                              (torch.from_numpy(x).cuda(),
+                               torch.tensor(epss, dtype=torch.float64).cuda(),
+                               131072 // w, torch.float32,
+                               getattr(torch, SIGNED[w]))))
     else:
         pairs = ([(bw, None) for bw in (16, 32, 64)]
                  if name == "decode_tiles_fused_nosub" else
@@ -1542,6 +1565,37 @@ def fused_cases(name: str) -> list:
                         f"subbins {'none' if sw is None else f'int{sw}'} "
                         f"{str(dtype)[6:]}",
                         (*args, torch.from_numpy(eps).cuda(), elems, dtype)))
+    return cases
+
+
+def _partition_models():
+    """The CPU models' operand generators (tests/test_torch_partition.py:
+    numpy and the port only), so the card runs the cases the models
+    were held to."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_partition
+
+    return test_torch_partition
+
+
+def bit4_cases(name: str) -> list:
+    """Adversarial operands of the BIT_4 transpose (kernel 8): 1, 2, 3 and
+    6104 chunks of random words, then all zero, all ones, one set bit at
+    each of the 32 positions, 0x80000000 and alternating bytes
+    (``bit4_words``); the inverse takes their planes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(17)
+    cases = []
+    for chunks in (1, 2, 3, 6104):
+        words = torch.from_numpy(
+            _partition_models().bit4_words(rng, chunks).view(np.int32)).cuda()
+        if name == "bitunshuffle_u32":
+            words = ref.bitshuffle_ref(words)
+        cases.append((f"adversarial words, {chunks} chunks", (words,)))
     return cases
 
 
@@ -1623,6 +1677,8 @@ def kernel_phase(rec, launches: dict, card: str):
             cases = [(repr(k[1:]), args) for k in keys for args in rec.calls[k]]
             if name in FUSED:
                 cases += fused_cases(name)
+            elif name in ("bitshuffle_u32", "bitunshuffle_u32"):
+                cases += bit4_cases(name)
         checks, err, work = [], 0.0, {}
         for label, args, *cap in cases:
             relaxations[0] = 0
@@ -1647,6 +1703,13 @@ def kernel_phase(rec, launches: dict, card: str):
                               if name == "solve_blockwise" else {})})
             check(same, f"{name}: kernel differs from plain on {label} "
                         f"(max abs err {e})")
+        if name == "bitunshuffle_u32":
+            # the round trip through both kernels
+            for label, (words,) in bit4_cases("bitshuffle_u32"):
+                same = torch.equal(kern(impl["bitshuffle_u32"][0](words)), words)
+                checks.append({"signature": f"round trip, {label}",
+                               "match": same, "max_abs_err": 0.0})
+                check(same, f"bitunshuffle(bitshuffle(w)) != w on {label}")
         if name == "solve_blockwise":
             # the cap of 8 passes must have stopped the chain's tile
             n_cap = {c["signature"]: c["launches"] for c in checks

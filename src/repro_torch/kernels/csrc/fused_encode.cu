@@ -16,15 +16,16 @@
 //   - the MSB-first RZE bitmap of the shuffled words and its popcount.
 // The value encode (`lopc_encode_values`) first makes those integers
 // from a (batch, elems) f32 batch and a (batch,) f64 eps: non-finite
-// cells become 0, every cell is quantized by `quantize_broadcast`'s op
-// sequence (x to f64, round half to even of x / eps, then two passes of
-// verify-and-correct against decode_base(b) and decode_base(b + 1),
-// compared as f32; subnormal operands and results flushed to signed
-// zeros as XLA does, ftz.cuh), the int32 bin wraps to the W-bit store
-// width, and the delta chain above runs on the result.  Only a cell can
-// be subnormal at every eps: the bases are at least eps / 2 in magnitude,
-// so the tiles with eps >= 2 * FLT_MIN run an instantiation without the
-// other flushes (a subnormal quotient rounds to bin 0 either way).
+// cells take bin 0, every other cell is quantized by the op sequence of
+// `quantize_broadcast` (x to f64, round half to even of x / eps, then
+// two passes of verify-and-correct against decode_base(b) and
+// decode_base(b + 1), compared as f32; subnormal operands and results
+// flushed to signed zeros as XLA does, ftz.cuh), the int32 bin wraps to
+// the W-bit store width, and the delta chain above runs on the result.
+// Only a cell can be subnormal at every eps: the bases are at least
+// eps / 2 in magnitude, so the tiles with eps >= 2 * FLT_MIN run an
+// instantiation without the other flushes (a subnormal quotient rounds
+// to bin 0 either way).
 //
 // What bounds it on this card: bytes for the integer encode (every input
 // word read once, every output word written once), provided the
@@ -49,11 +50,23 @@
 //     each, so the 32 lanes' stores hit distinct banks, and a second pass
 //     stores them in order and ballots the bitmap and its popcount from
 //     the same registers.
-// The value encode stages its chunk's bins in a second shared buffer, so
-// each cell is quantized once and the delta reads its neighbour from
-// there.  Numerics: built with -fmad=false; the f64 divide is IEEE (no
-// fast-math, no reciprocal), `rint` rounds half to even and the f32 cast
-// is __double2float_rn.
+// The value encode (W = 16 and 32) is bound by bytes too, provided the
+// quantize's f64 work fits beneath them (f64 operations run at 64 and
+// 64-bit conversions at 16 a clock on an SM): thread t loads its 32 cells
+// 16 bytes at a time, quantizes them in registers and runs the W-bit
+// row code above on the bins, the predecessor of cell 32t by a shuffle
+// (a warp's first lane quantizes that cell once more).  A cell costs one
+// f32 -> f64 conversion and six f64 operations (`quantize_fast`, which
+// says why its bin is the reference's): the quotient by a multiply with
+// the tile's rounded 1 / eps, rounded to an integer by adding and
+// subtracting 1.5 * 2^52, and a test that it lies clear of every
+// half-integer, where the reference's corrections cannot move it.  The
+// few cells it cannot vouch for (within 2^-20 of a half-integer, |q| >=
+// 2^30, non-finite) and every cell of a TINY tile run the reference's
+// sequence (`quantize_f32`: the IEEE f64 divide, `rint`, two passes over
+// the decode bases cast by __double2float_rn).  Built with -fmad=false
+// and no fast-math; the quantize's f64 operations are the _rn
+// intrinsics, which are never fused or reassociated.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,39 +111,24 @@ __device__ __forceinline__ uint32_t spread8(uint32_t h) {
 }
 
 // W = 16: thread t owns words 32t .. 32t + 31 of the row (kThreads * 32
-// = L): loaded 16 bytes at a time, delta and zigzag on halfword pairs,
-// then two 16 x 16 transposes in registers (transpose16x2) give its two
-// columns q = 2t, 2t + 1 of every plane, stored as one 32-bit word a lane
-// (a warp's 32 lanes: 128 contiguous bytes of the plane) and balloted
-// into the bitmap; no staging.  Adds the row's count to `total`.
-__device__ __forceinline__ void encode_row16(const int16_t* src, long long e0,
-                                             long long elems, long long row,
-                                             uint16_t* __restrict__ bitmap,
-                                             uint16_t* __restrict__ words,
-                                             int mode, int* total) {
+// = L), x[i] holding words 2i (low half) and 2i + 1, and `pred()` gives
+// the predecessor of word 32t in its high half (0 for word 0), read
+// only for the delta: delta and zigzag on halfword pairs, then two
+// 16 x 16 transposes in registers (transpose16x2) give its two columns
+// q = 2t, 2t + 1 of every plane, stored as one 32-bit word a lane (a
+// warp's 32 lanes: 128 contiguous bytes of the plane) and balloted into
+// the bitmap; no staging.  Adds the row's count to `total`.
+template <typename Pred>
+__device__ __forceinline__ void encode_regs16(uint32_t (&x)[16], Pred pred,
+                                              long long row,
+                                              uint16_t* __restrict__ bitmap,
+                                              uint16_t* __restrict__ words,
+                                              int mode, int* total) {
   constexpr int L = Chunk<16>::L, P = Chunk<16>::P;
   static_assert(kThreads * 32 == L, "one thread per 32 words");
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const long long e = e0 + 32 * t;
-  const int16_t* in = src + e;
-  uint32_t x[16];  // x[i]: words 2i (low half) and 2i + 1
-  if (e + 32 <= elems && ((uintptr_t)in & 15) == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint4 q = reinterpret_cast<const uint4*>(in)[i];
-      x[4 * i] = q.x, x[4 * i + 1] = q.y, x[4 * i + 2] = q.z, x[4 * i + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const uint32_t a = e + 2 * i < elems ? (uint16_t)in[2 * i] : 0u;
-      const uint32_t b = e + 2 * i + 1 < elems ? (uint16_t)in[2 * i + 1] : 0u;
-      x[i] = a | (b << 16);
-    }
-  }
   if (mode == kDelta) {
-    // the predecessor of word 32t in a high half (none for word 0)
-    uint32_t prev = t > 0 && e - 1 < elems ? (uint32_t)(uint16_t)in[-1] << 16 : 0u;
+    uint32_t prev = pred();
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const uint32_t d = __vsub2(x[i], __byte_perm(prev, x[i], 0x5432));
@@ -164,35 +162,55 @@ __device__ __forceinline__ void encode_row16(const int16_t* src, long long e0,
   if (lane == 0) atomicAdd(total, cnt);
 }
 
-// W = 32: thread t (of 128) owns words 32t .. 32t + 31 of the row,
-// loaded 16 bytes at a time, and transposes them in registers
-// (transpose32): its column q = t of every plane, stored straight to
-// device memory, 128 contiguous bytes a warp, and balloted into the
-// bitmap.  Adds the row's count to `total`.
-__device__ __forceinline__ void encode_row32(const int32_t* src, long long e0,
+// W = 16 from memory: words 32t .. 32t + 31 of the row loaded 16 bytes at
+// a time (those at or past `elems` read as 0), then encode_regs16.
+__device__ __forceinline__ void encode_row16(const int16_t* src, long long e0,
                                              long long elems, long long row,
-                                             uint32_t* __restrict__ bitmap,
-                                             uint32_t* __restrict__ words,
+                                             uint16_t* __restrict__ bitmap,
+                                             uint16_t* __restrict__ words,
                                              int mode, int* total) {
-  constexpr int L = Chunk<32>::L, P = Chunk<32>::P;
-  static_assert(block_threads<32>() * 32 == L, "one thread per 32 words");
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int t = threadIdx.x;
   const long long e = e0 + 32 * t;
-  const int32_t* in = src + e;
-  uint32_t x[32];
+  const int16_t* in = src + e;
+  uint32_t x[16];  // x[i]: words 2i (low half) and 2i + 1
   if (e + 32 <= elems && ((uintptr_t)in & 15) == 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < 4; ++i) {
       const uint4 q = reinterpret_cast<const uint4*>(in)[i];
       x[4 * i] = q.x, x[4 * i + 1] = q.y, x[4 * i + 2] = q.z, x[4 * i + 3] = q.w;
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) x[i] = e + i < elems ? (uint32_t)in[i] : 0u;
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t a = e + 2 * i < elems ? (uint16_t)in[2 * i] : 0u;
+      const uint32_t b = e + 2 * i + 1 < elems ? (uint16_t)in[2 * i + 1] : 0u;
+      x[i] = a | (b << 16);
+    }
   }
+  // the predecessor of word 32t in a high half (none for word 0)
+  const auto pred = [&] {
+    return t > 0 && e - 1 < elems ? (uint32_t)(uint16_t)in[-1] << 16 : 0u;
+  };
+  encode_regs16(x, pred, row, bitmap, words, mode, total);
+}
+
+// W = 32: thread t (of 128) owns words 32t .. 32t + 31 of the row in x,
+// and `pred()` gives the predecessor of word 32t (0 for word 0), read
+// only for the delta: delta and zigzag, then the transpose in registers
+// (transpose32) gives its column q = t of every plane, stored straight to
+// device memory, 128 contiguous bytes a warp, and balloted into the
+// bitmap.  Adds the row's count to `total`.
+template <typename Pred>
+__device__ __forceinline__ void encode_regs32(uint32_t (&x)[32], Pred pred,
+                                              long long row,
+                                              uint32_t* __restrict__ bitmap,
+                                              uint32_t* __restrict__ words,
+                                              int mode, int* total) {
+  constexpr int L = Chunk<32>::L, P = Chunk<32>::P;
+  static_assert(block_threads<32>() * 32 == L, "one thread per 32 words");
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   if (mode == kDelta) {
-    // the predecessor of word 32t (none for word 0)
-    uint32_t prev = t > 0 && e - 1 < elems ? (uint32_t)in[-1] : 0u;
+    uint32_t prev = pred();
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const uint32_t d = x[i] - prev;
@@ -214,6 +232,24 @@ __device__ __forceinline__ void encode_row32(const int32_t* src, long long e0,
   }
   __syncthreads();  // `total` was zeroed
   if (lane == 0) atomicAdd(total, cnt);
+}
+
+// W = 32 from memory: words 32t .. 32t + 31 of the row (load_words32 of
+// lane_transpose.cuh, shared with the BIT_4 transpose), then
+// encode_regs32.
+__device__ __forceinline__ void encode_row32(const int32_t* src, long long e0,
+                                             long long elems, long long row,
+                                             uint32_t* __restrict__ bitmap,
+                                             uint32_t* __restrict__ words,
+                                             int mode, int* total) {
+  const int t = threadIdx.x;
+  const long long e = e0 + 32 * t;
+  const uint32_t* in = reinterpret_cast<const uint32_t*>(src + e);
+  uint32_t x[32];
+  load_words32(in, elems - e, x);
+  // the predecessor of word 32t (none for word 0)
+  const auto pred = [&] { return t > 0 && e - 1 < elems ? in[-1] : 0u; };
+  encode_regs32(x, pred, row, bitmap, words, mode, total);
 }
 
 // W = 64: the shuffle butterfly, a warp per run of units, the planes
@@ -365,7 +401,8 @@ __device__ __forceinline__ float decode_base_f32(int32_t b, double eps) {
   return v;
 }
 
-// quantize_broadcast of one f32 cell (non-finite cells quantize 0)
+// quantize_broadcast of one f32 cell by the reference's op sequence
+// (non-finite cells quantize 0)
 template <bool TINY>
 __device__ __forceinline__ int32_t quantize_f32(float x, double eps) {
   if (!isfinite(x)) x = 0.0f;
@@ -384,45 +421,174 @@ __device__ __forceinline__ int32_t quantize_f32(float x, double eps) {
   return b;
 }
 
+// 1.5 * 2^52: for |q| < 2^51, q + kRound lies in [2^52, 2^53), where
+// consecutive doubles are 1 apart, so the sum rounds q half to even: the
+// sum less kRound is rint(q), and its low 32 bits are rint(q) mod 2^32.
+constexpr double kRound = 6755399441055744.0;
+
+// The fast quantize of a cell x on a tile with eps >= 2 * FLT_MIN and a
+// normal 1 / eps (rcp = 1 / eps rounded): sets b and returns true where b
+// is the reference's bin; false sends the cell to quantize_f32 (a
+// non-finite one to bin 0).  It is exact because, with Q = x / eps:
+//  - the first guess: q = x * rcp rounded is within 2^-52 |Q| of Q, and
+//    the reference's x / eps rounded within 2^-53 |Q|: each under 2^-22
+//    for |Q| < 2^30 (where they underflow, both are about 0).  So where q
+//    lies more than 2^-20 from every half-integer, both round to the same
+//    integer r, without a tie: r is the reference's first guess;
+//  - its two passes keep r: Q lies more than 2^-21 inside (r - 0.5,
+//    r + 0.5), so x is above t = (r - 0.5) * eps as the reference rounds
+//    it (off by at most 2^-53 |t| < 2^-22 eps) and below (r + 0.5) * eps
+//    as rounded.  decode_base(r) is the least f32 >= t where |t| >=
+//    FLT_MIN (the cast to nearest, bumped one step where it fell below
+//    t), so the f32 x is not below it; decode_base(r + 1) is at least its
+//    own t, so x is below it.  Neither pass moves r, and no base need be
+//    evaluated here;
+//  - the cells the reference reads otherwise: a subnormal x, read as a
+//    zero (bin 0), has |q| < 1/2, so r = 0; a non-finite x has a
+//    non-finite q and fails the test.
+__device__ __forceinline__ bool quantize_fast(float x, double rcp, int32_t& b) {
+  const double q = __dmul_rn((double)x, rcp);
+  const double s = __dadd_rn(q, kRound);
+  const double r = __dsub_rn(s, kRound);  // rint(q), for |q| < 2^51
+  b = __double2loint(s);
+  // q - r is exact (Sterbenz, or r = 0)
+  return fabs(q) < 0x1p30 && fabs(__dsub_rn(q, r)) < 0.5 - 0x1p-20;
+}
+
+// One cell's bin: the fast path where the tile allows it (`fast`) and it
+// holds, else the reference's sequence; a non-finite cell takes bin 0,
+// as the reference's where(valid, bins, 0).
+__device__ __forceinline__ int32_t quantize_cell(float x, double eps, double rcp,
+                                                 bool fast, bool tiny) {
+  int32_t b;
+  if (fast && quantize_fast(x, rcp, b)) return b;
+  if (!isfinite(x)) return 0;
+  return tiny ? quantize_f32<true>(x, eps) : quantize_f32<false>(x, eps);
+}
+
+// The bins of a thread's 32 consecutive cells, c holding their bit
+// patterns (a NaN for a cell past the tile, which takes bin 0 as the
+// chunk's zero padding does) and `cell` their address: the fast path on
+// every cell, then quantize_cell on the finite cells it cannot vouch for
+// (every finite cell on a tile without the fast path), each read again.
+// Non-finite cells, the tile pad among them, take bin 0 here.
+__device__ __forceinline__ void quantize_cells(const uint32_t (&c)[32],
+                                               int32_t (&b)[32],
+                                               const float* cell, double eps,
+                                               double rcp, bool fast,
+                                               bool tiny) {
+  uint32_t slow = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float x = __uint_as_float(c[i]);
+    const bool fin = isfinite(x);
+    int32_t bi;
+    const bool ok = quantize_fast(x, rcp, bi);
+    b[i] = fin ? bi : 0;
+    slow |= (uint32_t)(fin && !(fast && ok)) << i;
+  }
+  CLOCK_COUNT(4, __popc(slow));
+  while (slow) {
+    const int i = __ffs(slow) - 1;
+    slow &= slow - 1;
+    const int32_t v = quantize_cell(cell[i], eps, rcp, fast, tiny);
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      if (k == i) b[k] = v;
+  }
+}
+
+// cells past the tile load as this NaN (quantize_cells gives them bin 0)
+constexpr uint32_t kPastTile = 0x7fc00000u;
+
+// CTAs an SM must hold: at W = 16 four of 256 threads, so 64 registers a
+// thread, for the warps that hide the quantize's f64 latencies; at
+// W = 32 six of 128 (80 registers).  The phase-clock build with
+// -DLOPC_OWN_REGISTERS leaves the budget to the compiler (about 90
+// registers), to time that against this.
 template <int W>
-__global__ void __launch_bounds__(block_threads<W>())
+__host__ __device__ constexpr int value_min_blocks() {
+  return W == 16 ? 4 : 6;
+}
+#if defined(LOPC_PHASE_CLOCKS) && defined(LOPC_OWN_REGISTERS)
+#define VALUE_BOUNDS(W) __launch_bounds__(block_threads<W>())
+#else
+#define VALUE_BOUNDS(W) \
+  __launch_bounds__(block_threads<W>(), value_min_blocks<W>())
+#endif
+
+template <int W>
+__global__ void VALUE_BOUNDS(W)
 encode_values_kernel(const float* __restrict__ x,
                      const double* __restrict__ eps,
                      typename Word<W>::U* __restrict__ bitmap,
                      typename Word<W>::U* __restrict__ words,
                      int32_t* __restrict__ counts, long long elems, int cpt) {
-  using S = typename Word<W>::S;
-  using U = typename Word<W>::U;
+  static_assert(W == 16 || W == 32, "f32 bins store in 16 or 32 bits");
   constexpr int L = Chunk<W>::L;
-  __shared__ __align__(16) U stage[Chunk<W>::STAGE];
-  __shared__ S bins[L];
+  static_assert(block_threads<W>() * 32 == L, "one thread per 32 cells");
   __shared__ int total;
   const long long row = blockIdx.x;
   const long long tile = row / cpt;
   const long long e0 = (row - tile * cpt) * L;
   const float* src = x + tile * elems;
   const double tile_eps = eps[tile];
-  const bool tiny = tile_eps < 2.0 * FLT_MIN;  // uniform over the CTA
+  // uniform over the CTA: a TINY tile runs the reference's sequence on
+  // every cell, and the fast path needs a normal 1 / eps
+  const bool tiny = tile_eps < 2.0 * FLT_MIN;
+  const bool fast = !tiny && tile_eps <= 0x1p1000;
+  const double rcp = 1.0 / tile_eps;
+  const int t = threadIdx.x, lane = t & 31;
+  if (t == 0) total = 0;
   CLOCK_START();
-  for (int j = threadIdx.x; j < L; j += block_threads<W>()) {
-    const long long e = e0 + j;
-    const int32_t b = e >= elems ? 0
-                      : tiny     ? quantize_f32<true>(src[e], tile_eps)
-                                 : quantize_f32<false>(src[e], tile_eps);
-    // the wrapping narrowing to the store width, as astype(bins_store)
-    bins[j] = (S)(U)(uint32_t)b;
+  // thread t: cells 32t .. 32t + 31 of the chunk, 16 bytes at a time
+  const long long e = e0 + 32 * t;
+  const float* cell = src + e;
+  uint32_t c[32];
+  load_words32(reinterpret_cast<const uint32_t*>(cell), elems - e, c, kPastTile);
+  CLOCK_USE(c);
+  CLOCK_MARK(3);
+  int32_t b[32];
+  quantize_cells(c, b, cell, tile_eps, rcp, fast, tiny);
+  // the delta's predecessor of cell 32t: thread t - 1's last bin, by a
+  // shuffle, or at a warp's first lane that cell quantized once more
+  // (none for the chunk's first cell)
+  int32_t prev = shfl_up(b[31], 1);
+  if (lane == 0)
+    prev = t > 0 && e - 1 < elems
+               ? quantize_cell(cell[-1], tile_eps, rcp, fast, tiny) : 0;
+  CLOCK_USE(b);
+  CLOCK_MARK(2);
+  // the wrapping narrowing to the store width, as astype(bins_store),
+  // then the integer encode's delta chain from registers
+  if constexpr (W == 16) {
+    uint32_t h[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      h[i] = ((uint32_t)b[2 * i] & 0xffffu) | ((uint32_t)b[2 * i + 1] << 16);
+    encode_regs16(h, [&] { return (uint32_t)prev << 16; }, row, bitmap, words,
+                  kDelta, &total);
+  } else {
+    uint32_t w[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) w[i] = (uint32_t)b[i];
+    encode_regs32(w, [&] { return (uint32_t)prev; }, row, bitmap, words,
+                  kDelta, &total);
   }
   __syncthreads();
-  CLOCK_MARK(2);
-  encode_chunk<W>(bins, 0, L, row, bitmap, words, counts, kDelta, stage, &total);
+  if (t == 0) counts[row] = total;
+  CLOCK_MARK(1);
+  CLOCK_END();
 }
 
 }  // namespace
 
 CLOCK_EXPORTS(
     "W = 64: load+transform+transpose+stage loop,"
-    "W = 16 and 32: the whole row; W = 64: copy-out+bitmap+count,"
-    "quantize (kernel 4)")
+    "W = 16 and 32: the whole row (kernel 4: from its bins in registers);"
+    " W = 64: copy-out+bitmap+count,"
+    "kernel 4: quantize in registers,kernel 4: cell loads,"
+    "kernel 4: cells by the reference's sequence (a count: hits are cells)")
 
 extern "C" {
 

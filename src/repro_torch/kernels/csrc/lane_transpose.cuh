@@ -1,6 +1,8 @@
 // The MSB-first bit-plane transpose of a group of words held one per
 // lane, by a butterfly of warp shuffles, shared by the fused encode
-// (fused_encode.cu) and the fused decode (fused_decode.cu).
+// (fused_encode.cu) and the fused decode (fused_decode.cu); and the same
+// transpose done by one thread in registers, which the BIT_4 transpose
+// (bitshuffle.cu) shares with them.
 //
 // A group of W lanes holds a W x W bit matrix, lane r holding row r as a
 // W-bit word whose column c is bit W-1-c.  The transpose leaves column r
@@ -12,8 +14,8 @@
 // upper lane of a pair (lane & j == 0) keeps its columns c with
 // c & j == 0 and takes its partner's same columns, shifted j columns
 // right; the lower lane the mirror image.  That is one shuffle, two
-// shifts, a select and one bitwise merge per stage, against W ballots for
-// the ballot transpose of ballot_transpose.cuh.
+// shifts, a select and one bitwise merge per stage, against W ballots
+// for a transpose by `__ballot_sync`.
 //
 //   W = 16: half-warps transpose independently, words in the low 16 bits;
 //   W = 32: the warp;
@@ -87,9 +89,29 @@ __device__ __forceinline__ void transpose_lanes64(uint64_t& x0, uint64_t& x1,
   x1 = transpose_stages<64, uint64_t>(b, lane);
 }
 
+// 32 consecutive 32-bit words from `in` into x[0 .. 31], those at or past
+// `avail` as `fill`: 16 bytes at a time when all 32 are there and `in` is
+// 16-byte aligned, else one at a time.  A thread that owns 32 consecutive
+// words of a chunk owns their columns of every plane (transpose32 below).
+__device__ __forceinline__ void load_words32(const uint32_t* in, long long avail,
+                                             uint32_t (&x)[32],
+                                             uint32_t fill = 0u) {
+  if (avail >= 32 && ((uintptr_t)in & 15) == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint4 q = reinterpret_cast<const uint4*>(in)[i];
+      x[4 * i] = q.x, x[4 * i + 1] = q.y, x[4 * i + 2] = q.z, x[4 * i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = i < avail ? in[i] : fill;
+  }
+}
+
 // The same transpose done by one thread on a 32 x 32 matrix: x[r] holds
 // row r (column c at bit 31 - c); afterwards x[c] holds column c.  Five
-// stages of sixteen delta swaps, no shuffles (the fused encode at W = 32).
+// stages of sixteen delta swaps, no shuffles (the fused encode at W = 32,
+// the value encode's int32 bins, both directions of the BIT_4 transpose).
 __device__ __forceinline__ void transpose32(uint32_t (&x)[32]) {
 #pragma unroll
   for (int j = 16; j >= 1; j >>= 1) {

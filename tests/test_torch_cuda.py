@@ -12,7 +12,12 @@ Inputs are made from seeds with numpy.  The fused decode (kernels 3 and
 3') and encode (kernels 2 and 4) also run over every pair of stream
 widths, tiles that are not a whole number of chunks (the 1-D and 2-D
 plan tiles), batch 1, an all-zero chunk, a chunk whose bitmap has every
-bit set, and words at the zigzag and wrap extremes.
+bit set, and words at the zigzag and wrap extremes.  The BIT_4
+transpose (kernel 8) runs 1, 2, 3 and 6104 chunks of words with every
+bit pattern the CPU model tests (``test_torch_partition.bit4_words``),
+and the value encode (kernel 4) the CPU model's adversarial cells
+(``test_torch_partition.adversarial_cells``) at both store widths, with
+and without bounds within 2x of the smallest normal.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import fused_decode as pt_fd
 from repro_torch.kernels import fused_encode as pt_fe
 from repro_torch.kernels import subbin_sweep as pt_ss
+from test_torch_partition import F32_TINY, adversarial_cells, bit4_words
 
 CHUNK = {2: 8192, 4: 4096, 8: 2048}
 SIGNED = {2: np.int16, 4: np.int32, 8: np.int64}
@@ -412,3 +418,42 @@ def test_cuda_decode_refuses_streams_off_a_16_byte_boundary(rng, dev):
     with pytest.raises(ValueError, match="16-byte"):
         pt_fd.decode_tiles_fused(_t(bm).to(dev), shifted, _t(sbm).to(dev),
                                  _t(spk).to(dev), eps, 16384, torch.float32)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 6104])
+def test_cuda_bit4_transpose_adversarial_words(rng, dev, chunks):
+    """Kernel 8 both ways on all-zero, all-one, single-bit, 0x80000000
+    and alternating-byte words, and the round trip."""
+    from repro_torch.kernels import bitshuffle_kernel, ref
+
+    words = _t(bit4_words(rng, chunks).view(np.int32)).to(dev)
+    LAUNCHES.clear()
+    planes = bitshuffle_kernel.bitshuffle_u32(words)
+    back = bitshuffle_kernel.bitunshuffle_u32(planes)
+    assert LAUNCHES["bitshuffle_u32"] == 1 and LAUNCHES["bitunshuffle_u32"] == 1
+    assert torch.equal(planes, ref.bitshuffle_ref(words))
+    assert torch.equal(back, ref.bitunshuffle_ref(planes))
+    assert torch.equal(back, words)
+
+
+@pytest.mark.parametrize("word", [2, 4])
+def test_cuda_encode_values_adversarial_cells(rng, dev, word):
+    """Kernel 4 on the CPU model's adversarial cells, one tile per eps
+    (1e-6 .. 1, and two bounds within 2x of the smallest normal), in
+    tiles of 16384 cells and of an odd count (rows off a 16-byte
+    boundary: the kernel's one-at-a-time loads); int16 stores wrap the
+    bins of |q| up to 2^31."""
+    epss = list(np.geomspace(1e-6, 1.0, 7)) + [2.0**-10, 1.5 * F32_TINY,
+                                                2 * F32_TINY, 4 * F32_TINY]
+    store = torch.int16 if word == 2 else torch.int32
+    for elems in (16384, 8192 + 101):
+        x = np.stack([np.resize(adversarial_cells(rng, e), elems)
+                      for e in epss]).astype(np.float32)
+        xt, et = _t(x).to(dev), _t(np.array(epss)).to(dev)
+        LAUNCHES.clear()
+        got = pt_fe.encode_values_fused(xt, et, CHUNK[word], torch.float32, store)
+        assert LAUNCHES["encode_values_fused"] == 1
+        want = pt_fe.encode_values_plain(xt, et, CHUNK[word], torch.float32,
+                                         store)
+        for a, b in zip(got, want):
+            assert _bits_equal(a, b), elems

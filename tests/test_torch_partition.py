@@ -14,8 +14,14 @@ of ``lane_transpose.cuh`` emulated over 32 lanes, the warp-unit element
 order) and finishes each value with the plain version's pieces.  The
 encode model transposes each thread's 32 words in registers (16- and
 32-bit words) or stages the butterfly's planes (64-bit), as
-``fused_encode.cu`` does.  No jax and no reference: the plain versions are
-held to the reference elsewhere (tests/test_torch_kernels.py).
+``fused_encode.cu`` does.  The BIT_4 transpose (kernel 8) is modelled by
+thread (one per plane-word column, ``transpose32``, the inverse's padded
+shared stage), and the value encode (kernel 4) by its per-cell op
+sequence (``model_quantize``: the reciprocal quotient, rounding by
+1.5 * 2^52, the first pass's bases compared in f64, the fallback to the
+reference's sequence) and its predecessor exchange.  No jax and no
+reference: the plain versions are held to the reference elsewhere
+(tests/test_torch_kernels.py, tests/test_torch_ops.py).
 """
 from __future__ import annotations
 
@@ -24,9 +30,10 @@ import pytest
 import torch
 
 from repro_torch.core.floatbits import float_to_ordered, int_dtype_for, ordered_to_float
-from repro_torch.core.quantize import decode_base
+from repro_torch.core.quantize import decode_base, quantize_broadcast
 from repro_torch.kernels import fused_decode as pt_fd
 from repro_torch.kernels import fused_encode as pt_fe
+from repro_torch.kernels import ref as pt_ref
 
 WIDTHS = (16, 32, 64)
 UNSIGNED = {16: np.uint16, 32: np.uint32, 64: np.uint64}
@@ -422,5 +429,206 @@ def test_encode_model_equals_plain(rng, w, transform):
     got = model_encode(ints, transform)
     want = pt_fe.encode_ints_plain(torch.from_numpy(ints), 131072 // w,
                                    transform)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b.numpy())
+
+
+# ---- the BIT_4 transpose (kernel 8): thread g of a chunk's 128 owns
+# plane-word column g, words 32g .. 32g + 31
+
+ROW = 36  # the inverse's padded shared row, words
+
+
+def model_bitshuffle(words: np.ndarray) -> np.ndarray:
+    """(C, 4096) uint32 -> planes: thread g loads words 32g .. 32g + 31
+    (x[r] = word 32g + r), transposes, stores plane p's word g at
+    128p + g."""
+    out = np.empty_like(words)
+    for c, chunk in enumerate(words):
+        y = transpose32(chunk.reshape(128, 32).T)  # y[p, g]
+        for p in range(32):
+            out[c, 128 * p + np.arange(128)] = y[p]
+    return out
+
+
+def model_bitunshuffle(planes: np.ndarray) -> np.ndarray:
+    """Inverse: thread g loads in[128p + g] for p = 0..31, transposes
+    (x[i] = word 32g + i), writes its row of the shared stage (ROW words
+    a thread, 16 bytes at a time), then the CTA copies the chunk out, 16
+    bytes a thread: unit j from row j >> 3, words 4 (j & 7) onward."""
+    out = np.empty_like(planes)
+    for c, chunk in enumerate(planes):
+        x = np.stack([chunk[128 * p + np.arange(128)] for p in range(32)])
+        y = transpose32(x)  # y[i, g]
+        sh = np.zeros(128 * ROW, dtype=np.uint32)
+        for g in range(128):
+            sh[g * ROW: g * ROW + 32] = y[:, g]
+        units = np.arange(1024)
+        for k in range(4):
+            out[c, 4 * units + k] = sh[(units >> 3) * ROW + 4 * (units & 7) + k]
+    return out
+
+
+def test_bitshuffle_stage_rows_are_conflict_free():
+    """Eight consecutive threads' 16-byte stores to the padded rows, and
+    eight consecutive units' 16-byte reads, fall in distinct groups of
+    four banks."""
+    for i in range(8):
+        banks = {((g * ROW + 4 * i) % 32) // 4 for g in range(8)}
+        assert len(banks) == 8
+    for j0 in range(0, 1024, 8):
+        j = np.arange(j0, j0 + 8)
+        assert len(set(((j >> 3) * ROW + 4 * (j & 7)) % 32 // 4)) == 8
+
+
+def bit4_words(rng, chunks: int) -> np.ndarray:
+    """Random words, then the adversarial ones in turn: all zero, all
+    ones, one set bit at each of the 32 positions, 0x80000000,
+    alternating bytes."""
+    w = rng.integers(0, 2**32, (chunks, 4096), dtype=np.uint64).astype(np.uint32)
+    special = np.concatenate([
+        np.zeros(64, np.uint32), np.full(64, 0xFFFFFFFF, np.uint32),
+        np.uint32(1) << np.arange(32, dtype=np.uint32),
+        np.full(32, 0x80000000, np.uint32),
+        np.resize(np.array([0xFF00FF00, 0x00FF00FF], np.uint32), 64)])
+    flat = w.reshape(-1)
+    flat[: special.size] = special
+    flat[-special.size:] = special[::-1]
+    return w
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3])
+def test_bitshuffle_model_equals_plain(rng, chunks):
+    words = bit4_words(rng, chunks)
+    t = torch.from_numpy(words.view(np.int32))
+    shuffled = model_bitshuffle(words)
+    assert np.array_equal(shuffled.view(np.int32), pt_ref.bitshuffle_ref(t).numpy())
+    back = model_bitunshuffle(shuffled)
+    want = pt_ref.bitunshuffle_ref(torch.from_numpy(shuffled.view(np.int32)))
+    assert np.array_equal(back.view(np.int32), want.numpy())
+    assert np.array_equal(back, words)
+
+
+# ---- the value encode (kernel 4): the per-cell op sequence
+
+KROUND = 1.5 * 2.0**52
+F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def model_quantize(x: np.ndarray, eps: float):
+    """Kernel 4's bins of f32 cells on a tile of bin width ``eps``, and
+    which cells its fast path took: ``quantize_fast`` (q = x * rcp on the
+    cell as it is, subnormal or not, rint by adding and subtracting
+    1.5 * 2^52), vouched for where |q| < 2^30 and q lies more than 2^-20
+    from every half-integer; the other finite cells, and every cell of a
+    tile without the fast path (eps below 2 * FLT_MIN or above 2^1000),
+    take the reference's sequence (``quantize_f32``, modelled by the
+    plain ``quantize_broadcast``); non-finite cells take bin 0."""
+    x = np.asarray(x, np.float32)
+    fin = np.isfinite(x)
+    tile_fast = 2 * F32_TINY <= eps <= 2.0**1000
+    with np.errstate(over="ignore", invalid="ignore"):
+        rcp = np.float64(1.0) / np.float64(eps)
+        q = x.astype(np.float64) * rcp
+        s = q + KROUND
+        r = s - KROUND
+        b = (s.view(np.uint64) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        ok = (np.abs(q) < 2.0**30) & (np.abs(q - r) < 0.5 - 2.0**-20)
+    fast = ok & tile_fast
+    slow = fin & ~fast
+    ref = quantize_broadcast(torch.from_numpy(np.where(slow, x, 0)), eps,
+                             torch.float32).numpy()
+    bins = np.where(fast, b.view(np.int32), np.where(slow, ref, 0))
+    return bins.astype(np.int32), fast
+
+
+def adversarial_cells(rng, eps: float) -> np.ndarray:
+    """f32 cells for a tile of width eps: cells at (k +- 0.5) eps and 1
+    and 2 f32 ulps either side, the exact bases (decode_base) and one ulp
+    below, +-0, subnormals, non-finite cells, |q| near 2^30 and near 2^31
+    (inside int32), and a random spread."""
+    k = rng.integers(-2000, 2000, 400).astype(np.float64)
+    halves = np.concatenate([(k + 0.5) * eps, (k - 0.5) * eps]).astype(np.float32)
+    near = [halves]
+    for steps in (1, 2):
+        near += [np.nextafter(halves, np.float32(np.inf)), np.nextafter(
+            halves, np.float32(-np.inf))]
+        for _ in range(steps - 1):
+            near[-2] = np.nextafter(near[-2], np.float32(np.inf))
+            near[-1] = np.nextafter(near[-1], np.float32(-np.inf))
+    bases = decode_base(torch.from_numpy(k.astype(np.int32)), eps,
+                        torch.float32).numpy()
+    big = []
+    for top in (2.0**30, 2.0**31 - 256):
+        qs = top + np.arange(-3, 3) * 37.0
+        big += [(qs * eps).astype(np.float32), (-qs * eps).astype(np.float32)]
+    big = np.concatenate(big)
+    big = big[np.abs(big.astype(np.float64) / eps) < 2.0**31 - 2]
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-41, -1e-41,
+                        F32_TINY, -F32_TINY], np.float32)
+    subnormal = np.nextafter(np.float32(F32_TINY), np.float32(0)) * np.array(
+        [1, -1], np.float32)  # the largest subnormals: |q| near 1/2 at 2 tiny
+    spread = (rng.standard_normal(2000) * 300 * eps).astype(np.float32)
+    return np.concatenate(near + [bases, np.nextafter(bases, np.float32(-np.inf)),
+                                  big, special, subnormal, spread])
+
+
+def test_quantize_model_equals_plain(rng):
+    """The fast path with its fallback gives the plain ``quantize_broadcast``
+    bit for bit, over eps 1e-6 .. 1 and bounds within 2x of the smallest
+    normal; the fast path takes most cells and leaves the cells at
+    half-integer quotients and |q| >= 2^30 to the fallback."""
+    epss = list(np.geomspace(1e-6, 1.0, 13)) + [
+        float(rng.uniform(1e-6, 1.0)), 0.1, 2.0**-10, 1.5 * F32_TINY,
+        2 * F32_TINY, 4 * F32_TINY]
+    taken = []
+    for eps in epss:
+        x = adversarial_cells(rng, eps)
+        got, fast = model_quantize(x, eps)
+        want = quantize_broadcast(torch.from_numpy(x), eps, torch.float32)
+        want = torch.where(torch.isfinite(torch.from_numpy(x)), want, 0).numpy()
+        assert np.array_equal(got, want), eps
+        with np.errstate(over="ignore", invalid="ignore"):
+            q = np.abs(x.astype(np.float64) / eps)
+        assert not fast[q >= 2.0**30].any()
+        if eps >= 2 * F32_TINY:
+            taken.append(fast.mean())
+        else:
+            assert not fast.any()
+    assert min(taken) > 0.5
+
+
+@pytest.mark.parametrize("w", [16, 32])
+def test_encode_values_model_equals_plain(rng, w):
+    """Kernel 4's row by thread: each thread's 32 bins, the predecessor of
+    its first cell by a shuffle from the thread before or (a warp's first
+    lane) that cell quantized once more, then the integer encode's row."""
+    length = geometry(w)["L"]
+    elems, batch = length + 37, 2
+    x = (rng.standard_normal((batch, elems)) * (30.0 if w == 16 else 3e4)
+         ).astype(np.float32)
+    x[0, :3] = [np.inf, -np.nan, -0.0]
+    x[1, 1000:1040] = np.float32(1e-41)
+    eps = np.array([1e-3, 0.37])
+    bins = np.stack([model_quantize(x[i], eps[i])[0] for i in range(batch)])
+    cpt = -(-elems // length)
+    padded = np.zeros((batch, cpt * length), np.int32)
+    padded[:, :elems] = bins
+    for i in range(batch):
+        for c in range(cpt):
+            row = padded[i, c * length: (c + 1) * length].reshape(-1, 32)
+            shuffled = np.concatenate([[0], row[:-1, 31]])
+            e = c * length + 32 * np.arange(row.shape[0]) - 1
+            first = (np.arange(row.shape[0]) % 32 == 0) & (e >= c * length)
+            again = model_quantize(x[i, e[first & (e < elems)]], eps[i])[0]
+            prev = shuffled.copy()
+            prev[first] = 0
+            prev[np.flatnonzero(first)[: again.size]] = again
+            assert np.array_equal(prev, shuffled)
+    narrow = padded[:, :elems].astype(SIGNED[w])
+    got = model_encode(narrow, "delta")
+    want = pt_fe.encode_values_plain(torch.from_numpy(x), torch.from_numpy(eps),
+                                     length, torch.float32,
+                                     getattr(torch, f"int{w}"))
     for a, b in zip(got, want):
         assert np.array_equal(a, b.numpy())
