@@ -86,6 +86,30 @@ Phases; any failure exits nonzero before the last line is printed:
    band-solve kernel) -> ``dequantize_ff32``, exactly one launch each of
    the FF32 quantize and dequantize kernels; checks the bound, the local
    order and the critical points.
+2g. Temporal chains at full size, through ``repro_torch.temporal``:
+   isabel-f32-chain (6 ISABEL-shaped frames, turbulence advected, eb 1e-2
+   NOA, keyframe interval 4: frames K R R R K R), miranda-f64-chain (4
+   Miranda-shaped frames, gaussians diffused, interval 3) and
+   isabel-f32-chain-adaptive (isabel's first 4 frames, interval 3,
+   ``adaptive_eb="tda"``: the chain-wide ladder and the 32-bit ordered
+   lane).  Frames are ``data.fields.make_field_sequence``'s, the base
+   spectrum taken once per chain.  Launches are counted per path: the
+   tile solve and kernel 2 must launch, kernel 2's zigzag at least once
+   per residual frame (``kernels.TRANSFORM_LAUNCHES``), with one tile
+   upload and one stream download per frame.  Every frame keeps the
+   bound (adaptive: each tile's rung bound and no critical-point error)
+   and the strict SoS order; a uniform chain's frames must equal the
+   snapshot path's decode at the chain's bound
+   (``engine.compress(frame, eps_abs, mode="abs")``), whose containers'
+   sum is logged beside the chain's; ``decompress_frame(t)`` must equal
+   the chain's decode and step only the frames from
+   ``keyframe_before(t)``; a ``ChainDecoder`` stepped to frame k-1 must
+   seed ``encode_appended_frame`` to the chain's own sections of frame k
+   (one residual frame, one keyframe).  A cut of isabel's chain (4
+   frames, interval 3, 16x256x256), uniform and adaptive, must give the
+   CPU's bytes and decode.  Times a warm compress and decompress (median
+   of 3, raw MB of all frames), profiles one of each, and times the
+   chain decode's torch stages on one frame beside kernel 3.
 3. Width runs: the same entry points on full-size fields at bounds that
    reach the int32 and int64 bins widths (ISABEL's also on the plain
    path), on 1-D and 2-D fields whose tiles are the (1,1,4096) and
@@ -129,7 +153,9 @@ Phases; any failure exits nonzero before the last line is printed:
    store widths.  The BIT_4 transpose (kernel 8) runs 1, 2, 3 and 6104
    chunks of all-zero, all-one, single-bit, 0x80000000 and
    alternating-byte words (``bit4_cases``) both ways, and the two kernels
-   in turn must give the words back.  Times each kernel by its device time per launch
+   in turn must give the words back.  Kernel 2 runs its cases with the
+   delta, the raw and the zigzag transform, and the zigzag signatures
+   the chains recorded.  Times each kernel by its device time per launch
    (torch.profiler) and the plain version with CUDA events, and computes
    each kernel's bound from the operands; those four kernels on every
    recorded signature.  The band
@@ -146,7 +172,9 @@ Phases; any failure exits nonzero before the last line is printed:
    fused value encode), and round-trip within their bound; their v1
    containers (the band-solve kernel on the card) must equal the CPU's
    (``jacobi``) byte for byte; the 8 ``adaptive/*`` cases, compressed
-   under every solver value, must all hash to the manifest.
+   under every solver value, must all hash to the manifest, and so must
+   the 8 ``chain/*`` and 4 ``chain-adaptive/*`` chains, each frame
+   within its bound.
 
 Logs the seconds of each phase.  Prints one ``{"kernels": [...]}``
 line, the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -709,18 +737,17 @@ ADAPTIVE_KERNELS = {
 }
 
 
-def within_rung_bounds(x, y, blob, eng) -> bool:
+def within_rung_bounds(x, y, c, eng) -> bool:
     """Every cell within its own tile's rung bound, the rule of the
     reference's tests/test_order_properties.py: ``eb * range * 2**(k_max
     - rung)`` (the header holds the loosest rung, ``eb * range *
-    2**k_max``), with a slack of 64 ulps of the dtype."""
+    2**k_max``), with a slack of 64 ulps of the dtype.  ``c`` is the
+    parsed container (a v2 snapshot's, or a v3 chain's for any frame)."""
     import numpy as np
     import torch
 
-    from repro_torch.core import bitstream
     from repro_torch.tda.adaptive import tile_ids
 
-    c = bitstream.read_container_v2(blob)
     layout = eng.container_layout(c)
     rung = torch.from_numpy(c.eb_ladder().astype(np.int64)).cuda()
     tile_bound = c.header.eps_abs * torch.exp2(-rung.double())
@@ -786,7 +813,7 @@ def adaptive_path(name, shape, dtype, eng, executor, kernels, topology, tda,
             check(got.get(k, 0) == 0, f"{k} launched on the {field} {path} path")
     check(y.shape == x.shape and y.dtype == x.dtype, f"{field}: bad output shape")
     check(np.isfinite(y).all(), f"{field}: non-finite decode")
-    check(within_rung_bounds(x, y, blob, eng),
+    check(within_rung_bounds(x, y, bitstream.read_container_v2(blob), eng),
           f"{field}: a cell exceeds its tile's rung bound")
     t0 = time.perf_counter()
     xt, yt = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
@@ -891,6 +918,291 @@ def ff32_path(name, shape, dtype, ops, subbin, quantize, tda, kernels,
     log(f"full size {field}: max error {err:.6g} <= {eb_abs:.6g}, order kept, "
         f"critical point errors {cpe}, {sweeps} band sweeps, {wall:.3f} s")
     return info
+
+
+# ---- 2g: temporal chains
+#
+# (cell, evolution, base, shape, dtype, frames, keyframe interval,
+# compress keywords): isabel's frames run K R R R K R, miranda's K R R K;
+# the adaptive cell takes isabel's first 4 frames
+CHAIN_CELLS = (
+    ("isabel-f32-chain", "advect", *ISABEL, 6, 4, {}),
+    ("miranda-f64-chain", "diffuse", *MIRANDA, 4, 3, {}),
+    ("isabel-f32-chain-adaptive", "advect", *ISABEL, 4, 3,
+     {"adaptive_eb": "tda"}),
+)
+# the isabel chain's cut compressed on the card and on the CPU: its first
+# 4 frames at interval 3, 16 X-rows (one tile deep), Y and Z cut to 256
+CHAIN_CUT = (slice(0, 16), slice(0, 256), slice(0, 256))
+def chain_frames(evolution, base, shape, dtype, n_frames: int,
+                 make_field) -> list:
+    """``fields.make_field_sequence(evolution, base, shape, n_frames,
+    dtype, seed=0)`` from the base field of ``make_field`` (the main
+    path's cached ``make_scientific_field``, whose f64 field is
+    miranda's base)."""
+    import numpy as np
+
+    from repro_torch.data import fields
+
+    x0 = make_field(base, shape, np.dtype("float64"), seed=0)
+    return fields.sequence_from_base(evolution, x0, n_frames, np.dtype(dtype))
+
+
+def frame_kinds(n: int, interval: int) -> list:
+    from repro_torch.core import bitstream
+
+    return [bitstream.FRAME_KEY if t == 0 or (interval and t % interval == 0)
+            else bitstream.FRAME_RESIDUAL for t in range(n)]
+
+
+def chain_path(label, frames, interval, kw, temporal, eng, executor, kernels,
+               topology, tda, launches: dict, rec):
+    """Phase 2g: one full-size chain compress -> decompress through
+    ``repro_torch.temporal``, each path's launches counted alone: the tile
+    solve and kernel 2, with the zigzag at least once per residual frame;
+    one tile upload and one stream download per frame.  Every frame keeps
+    the bound (adaptive: each tile's rung bound, no critical-point error)
+    and the strict SoS order; a uniform chain's frames equal the snapshot
+    path's decode at the chain's bound; ``decompress_frame`` equals the
+    chain's decode and replays from the keyframe before; appended frames
+    give the chain's own sections."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bitstream
+
+    adaptive = bool(kw)
+    n = len(frames)
+    kinds = frame_kinds(n, interval)
+    n_res = kinds.count(bitstream.FRAME_RESIDUAL)
+    raw_mb = sum(f.nbytes for f in frames) / 1e6
+    executor.reset_transfer_counts()
+    kernels.reset_launches()
+    rec.ordered = adaptive
+    t0 = time.perf_counter()
+    blob, stats = temporal.compress_chain(frames, EB, keyframe_interval=interval,
+                                          return_stats=True, **kw)
+    cold_c = time.perf_counter() - t0
+    rec.ordered = False
+    launches[f"{label} compress"] = dict(kernels.LAUNCHES)
+    by_transform = dict(kernels.TRANSFORM_LAUNCHES)
+    counts = dict(executor.TRANSFER_COUNTS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    y = temporal.decompress_chain(blob)
+    cold_d = time.perf_counter() - t0
+    launches[f"{label} decompress"] = dict(kernels.LAUNCHES)
+    got = launches[f"{label} compress"]
+    for k in ("solve_tiles_blockwise", "encode_ints_fused"):
+        check(got.get(k, 0) > 0, f"{k} never launched on the {label} compress path")
+    zig = by_transform.get("encode_ints_fused_zigzag", 0)
+    check(zig >= n_res, f"{label}: {zig} zigzag encodes for {n_res} residual frames")
+    check(counts["h2d_tiles"] == n and counts["d2h_sections"] == n,
+          f"{label}: {counts['h2d_tiles']} tile uploads and "
+          f"{counts['d2h_sections']} stream downloads for {n} frames")
+    c = bitstream.read_container_v3(blob)
+    check([e.kind for e in c.entries] == kinds, f"{label}: frame kinds differ")
+    check(y.shape == (n,) + frames[0].shape and y.dtype == frames[0].dtype,
+          f"{label}: bad output shape")
+    t0 = time.perf_counter()
+    for t, x in enumerate(frames):
+        check(np.isfinite(y[t]).all(), f"{label} frame {t}: non-finite decode")
+        if adaptive:
+            check(within_rung_bounds(x, y[t], c, eng),
+                  f"{label} frame {t}: a cell exceeds its tile's rung bound")
+        else:
+            err = float(np.abs(x.astype(np.float64) - y[t].astype(np.float64)).max())
+            check(err <= stats.eps_abs, f"{label} frame {t}: error {err} exceeds "
+                                        f"the chain's bound {stats.eps_abs}")
+        xt, yt = torch.from_numpy(x).cuda(), torch.from_numpy(y[t]).cuda()
+        check(order_preserved(xt, yt, topology), f"{label} frame {t}: local order broken")
+        if adaptive:
+            lov = tda.local_order_violations(xt, yt)
+            cpe = tda.critical_point_errors(xt, yt)
+            check(lov == 0 and cpe == (0, 0, 0), f"{label} frame {t}: {lov} "
+                  f"local order violations, critical point errors {cpe}")
+        del xt, yt
+    checks_s = time.perf_counter() - t0
+    # the per-frame snapshot containers at the chain's own bound (the
+    # chain's user bound, with a ladder per frame, when adaptive)
+    t0 = time.perf_counter()
+    snap_bytes = 0
+    for t, x in enumerate(frames):
+        if adaptive:
+            s = eng.compress(x, c.header.eps_abs * 2.0**-bitstream.EB_LADDER_K_MAX,
+                             mode="abs", adaptive_eb="tda")
+        else:
+            s = eng.compress(x, stats.eps_abs, mode="abs")
+            check(eng.decompress(s).tobytes() == y[t].tobytes(),
+                  f"{label} frame {t}: the chain's decode differs from the "
+                  "snapshot path's at the chain's bound")
+        snap_bytes += len(s)
+    snapshot_s = time.perf_counter() - t0
+    random_access(blob, y, c, temporal, label)
+    appended_frames(frames, (kinds.index(bitstream.FRAME_RESIDUAL), interval),
+                    c, temporal, label, adaptive)
+    info = {"field": label, "frames": n, "keyframe_interval": interval,
+            "kinds": "".join("K" if k == bitstream.FRAME_KEY else "R" for k in kinds),
+            "raw_MB": raw_mb, "container_bytes": len(blob),
+            "ratio": raw_mb * 1e6 / len(blob),
+            "snapshot_bytes": snap_bytes, "ratio_vs_snapshots": snap_bytes / len(blob),
+            "bins_bytes": stats.bins_bytes, "subbin_bytes": stats.subbin_bytes,
+            "eps_abs": stats.eps_abs, "n_sweeps": stats.n_sweeps,
+            "zigzag_launches": zig, "launches_by_transform": by_transform,
+            "transfers": counts, "cold_compress_s": cold_c,
+            "cold_decompress_s": cold_d, "frame_checks_s": checks_s,
+            "snapshot_s": snapshot_s}
+    if adaptive:
+        info["rungs"] = np.bincount(c.eb_ladder(),
+                                    minlength=bitstream.EB_LADDER_K_MAX + 1).tolist()
+    log(f"full size {label} ({info['kinds']}): ratio {info['ratio']:.3f}, "
+        f"{info['ratio_vs_snapshots']:.4f}x smaller than its {n} snapshot "
+        f"containers ({snap_bytes} bytes against {len(blob)}); {zig} zigzag "
+        f"encodes for {n_res} residual frames; every frame within its bound, "
+        "order kept"
+        + (", no critical point error" if adaptive else
+           ", equal to the snapshot path's decode")
+        + "; decompress_frame and appended frames agree")
+    return blob, y, info
+
+
+def random_access(blob, y, c, temporal, label: str) -> None:
+    """``decompress_frame(t)`` equals the chain's decode of frame t and
+    steps the bins of the frames from ``keyframe_before(t)`` to t only."""
+    steps = []
+    real = temporal.ChainDecoder.step
+
+    def counted(self, t):
+        steps.append(t)
+        return real(self, t)
+
+    temporal.ChainDecoder.step = counted
+    try:
+        for t in range(c.n_frames):
+            steps.clear()
+            got = temporal.decompress_frame(blob, t)
+            check(got.tobytes() == y[t].tobytes(),
+                  f"{label}: decompress_frame({t}) differs from the chain's decode")
+            check(steps == list(range(c.keyframe_before(t), t + 1)),
+                  f"{label}: decompress_frame({t}) stepped frames {steps}")
+    finally:
+        temporal.ChainDecoder.step = real
+
+
+def appended_frames(frames, ks, c, temporal, label: str,
+                    adaptive: bool) -> None:
+    """A ``ChainDecoder`` stepped to frame k-1 seeds
+    ``encode_appended_frame`` with its resident bins: frame k's sections
+    must be the chain's own, for each k of ``ks`` (ascending; one decoder
+    steps on through them)."""
+    import numpy as np
+
+    from repro_torch.core import bitstream
+    from repro_torch.core.quantize import effective_eps
+
+    dec = temporal.ChainDecoder(c)
+    eps_tight = effective_eps(c.header.eps_abs) * (
+        2.0**-bitstream.EB_LADDER_K_MAX if adaptive else 1.0)
+    for k in ks:
+        for j in range(dec.pos + 1, k):
+            dec.step(j)
+        prev_max = float(np.max(np.abs(frames[k - 1]))) / eps_tight + 4
+        sections, _, _, _ = temporal.encode_appended_frame(
+            frames[k], eps_abs=c.header.eps_abs, kind=c.entries[k].kind,
+            prev_bins=dec.resident_bins(), prev_max_bin=prev_max,
+            ladder=c.eb_ladder() if adaptive else None)
+        check(sections == c.frame_tiles(k)[0],
+              f"{label}: the appended frame {k} differs from the chain's sections")
+
+
+def chain_cut_agreement(frames, temporal, info: dict) -> None:
+    """``CHAIN_CUT`` of the isabel chain's first 4 frames at interval 3,
+    uniform and adaptive, compressed on the card and on the CPU: the
+    same bytes, and the CPU decodes them to the card's values."""
+    import numpy as np
+
+    cut = [np.ascontiguousarray(f[CHAIN_CUT]) for f in frames[:4]]
+    t0 = time.perf_counter()
+    for kw in ({}, {"adaptive_eb": "tda"}):
+        blob = temporal.compress_chain(cut, EB, keyframe_interval=3, **kw)
+        check(temporal.compress_chain(cut, EB, keyframe_interval=3,
+                                      device="cpu", **kw) == blob,
+              f"the {cut[0].shape} chain cut {kw}: the CPU writes another chain")
+        check(temporal.decompress_chain(blob, device="cpu").tobytes()
+              == temporal.decompress_chain(blob).tobytes(),
+              f"the {cut[0].shape} chain cut {kw}: the CPU decodes other values")
+    info["cpu_chain_cut_s"] = time.perf_counter() - t0
+    log(f"chain cut {cut[0].shape} x 4 frames, uniform and adaptive: the "
+        f"card's chains equal the CPU's ({info['cpu_chain_cut_s']:.1f} s)")
+
+
+def chain_timing(frames, interval, kw, blob, y, temporal, info: dict) -> None:
+    """Warm ``compress_chain`` and ``decompress_chain``, median of 3, in
+    raw MB/s; every run gives the same bytes and values again."""
+    import torch
+
+    tc, td = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b2 = temporal.compress_chain(frames, EB, keyframe_interval=interval, **kw)
+        tc.append(time.perf_counter() - t0)
+        check(b2 == blob, f"{info['field']}: compress not deterministic on the card")
+        t0 = time.perf_counter()
+        y2 = temporal.decompress_chain(b2)
+        td.append(time.perf_counter() - t0)
+        check(y2.tobytes() == y.tobytes(),
+              f"{info['field']}: decompress not deterministic on the card")
+    info.update(compress_MB_s=info["raw_MB"] / statistics.median(tc),
+                decompress_MB_s=info["raw_MB"] / statistics.median(td),
+                compress_s_runs=tc, decompress_s_runs=td)
+
+
+def chain_decode_stages(blob, temporal, card: str) -> dict:
+    """The chain decode's torch stages on a full-size frame, by CUDA
+    events: a keyframe's and a residual frame's bins (the torch decode of
+    ``device.decode_tiles``, the residual's accumulate), the subbins and
+    the dequantize; beside them kernel 3 on the keyframe's bins and
+    subbins, the same work as one kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bitstream
+    from repro_torch.engine import device as device_mod
+    from repro_torch.kernels import fused_decode
+
+    c = bitstream.read_container_v3(blob)
+    dec = temporal.ChainDecoder(c)
+    dec.step(0)
+    e = dec.layout.tile_elems
+    tiles, _ = c.frame_tiles(0)
+    streams = [dec._upload_sections(sec, temporal.chain._section_word(sec[0]))
+               for sec in ([b for b, _ in tiles], [s for _, s in tiles])]
+    key = dec.bins
+    res_tiles, _ = c.frame_tiles(1)
+    res_sec = [b for b, _ in res_tiles]
+    res = dec._upload_sections(res_sec, temporal.chain._section_word(res_sec[0]))
+    subs = device_mod.decode_tiles(*streams[1], e, "raw", streams[1][0].dtype)
+    eps = torch.full((dec.capacity,), dec.eps_eff, dtype=torch.float64,
+                     device=key.device)
+    dtype = torch.float64 if dec.dtype == np.float64 else torch.float32
+    out = {
+        "keyframe_bins_ms": cuda_ms(lambda: device_mod.decode_tiles(
+            *streams[0], e, "delta", dec.bdt), 5),
+        "residual_bins_ms": cuda_ms(lambda: device_mod.accumulate_bins(
+            key, device_mod.decode_tiles(*res, e, "zigzag", dec.bdt)), 5),
+        "subbins_ms": cuda_ms(lambda: device_mod.decode_tiles(
+            *streams[1], e, "raw", streams[1][0].dtype), 5),
+        "dequantize_ms": cuda_ms(lambda: device_mod.dequantize_tiles(
+            key, subs, eps, dtype), 5),
+        "kernel3_keyframe_ms": cuda_ms(lambda: fused_decode.decode_tiles_fused(
+            *streams[0], *streams[1], eps, e, dtype), 20),
+        "tiles": dec.layout.n_tiles, "capacity": dec.capacity, "card": card,
+    }
+    log(f"chain decode stages ({dec.capacity} tiles of {e}, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out.items()
+                    if k.endswith("_ms")) + f"; card {card}")
+    return out
 
 
 # (tile-straddling box, box inside one (16, 16, 64) tile, one-cell slab)
@@ -1061,19 +1373,27 @@ def profile(name, shape, dtype, eng, make_field, **kw) -> dict:
     device's idle share of the wall time, and the host functions of the
     port by cumulative time (cProfile, a separate run: it slows Python
     code, so read its shares, not its seconds)."""
+    import numpy as np
+
+    x = make_field(name, shape, np.dtype(dtype), seed=0)
+    blob = eng.compress(x, EB, **kw)
+    return profile_calls({"compress": lambda: eng.compress(x, EB, **kw),
+                          "decompress": lambda: eng.decompress(blob)})
+
+
+def profile_calls(calls: dict, host=("compress", "decompress")) -> dict:
+    """``profile``'s measurements of each warm call in ``calls`` (name ->
+    function): the device trace of each, the host's shares of those named
+    in ``host``."""
     import cProfile
     import pstats
 
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    x = make_field(name, shape, np.dtype(dtype), seed=0)
-    blob = eng.compress(x, EB, **kw)
     out = {}
-    for what, fn in (("compress", lambda: eng.compress(x, EB, **kw)),
-                     ("decompress", lambda: eng.decompress(blob))):
+    for what, fn in calls.items():
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
@@ -1094,15 +1414,17 @@ def profile(name, shape, dtype, eng, make_field, **kw) -> dict:
         # an empty device trace (CUPTI dropped the buffer) is not an idle
         # device: report it as not measured
         busy = sum(r[0] for r in rows) if rows else None
-        host = cProfile.Profile()
-        host.enable()
-        fn()
-        host.disable()
-        stats = pstats.Stats(host).stats
-        total = max(v[3] for v in stats.values())
-        funcs = sorted(((v[3], f"{Path(k[0]).name}:{k[2]}")
-                        for k, v in stats.items() if "repro_torch" in k[0]),
-                       reverse=True)
+        funcs, total = [], 1.0
+        if what in host:
+            prof_host = cProfile.Profile()
+            prof_host.enable()
+            fn()
+            prof_host.disable()
+            stats = pstats.Stats(prof_host).stats
+            total = max(v[3] for v in stats.values())
+            funcs = sorted(((v[3], f"{Path(k[0]).name}:{k[2]}")
+                            for k, v in stats.items() if "repro_torch" in k[0]),
+                           reverse=True)
         out[what] = {"wall_ms": wall_us / 1e3,
                      "device_busy_ms": None if busy is None else busy / 1e3,
                      "device_idle_share": None if busy is None else 1 - busy / wall_us,
@@ -1500,7 +1822,7 @@ def fused_cases(name: str) -> list:
     cases = []
     if name == "encode_ints_fused":
         for w in (16, 32, 64):
-            for transform in ("delta", "raw"):
+            for transform in ("delta", "raw", "zigzag"):
                 for batch, elems, kind in shapes:
                     kind = "dense" if kind == "full bitmap" else kind
                     ints = torch.from_numpy(
@@ -1787,11 +2109,15 @@ def main() -> None:
 
     import numpy as np
 
-    from repro_torch import core, tda
+    from repro_torch import core, tda, temporal
     from repro_torch import engine as eng
     from repro_torch import kernels
     from repro_torch.core import bitstream, quantize, subbin, topology
-    from repro_torch.data.fields import FIELD_GENERATORS, make_scientific_field
+    from repro_torch.data.fields import (
+        FIELD_GENERATORS,
+        make_field_sequence,
+        make_scientific_field,
+    )
     from repro_torch.engine import device as device_mod
     from repro_torch.engine import executor
     from repro_torch.kernels import (
@@ -1898,6 +2224,37 @@ def main() -> None:
     ff32 = ff32_path(*ISABEL, ops, subbin, quantize, tda, kernels, field,
                      launches)
     phase_done("2f ff32")
+
+    # ---- 2g. temporal chains at full size
+    chains, chain_profiles = [], {}
+    isabel_frames = chain_frames("advect", *ISABEL, 6, field)
+    for label, evo, name, shape, dtype, n, interval, kw in CHAIN_CELLS:
+        frames = (isabel_frames[:n] if name == ISABEL[0]
+                  else chain_frames(evo, name, shape, dtype, n, field))
+        blob, y, info = chain_path(label, frames, interval, kw, temporal, eng,
+                                   executor, kernels, topology, tda, launches,
+                                   rec)
+        chain_timing(frames, interval, kw, blob, y, temporal, info)
+        # the host's shares of the compress only: the decompress's are
+        # the snapshot decode's section parsing (phase 2's profiles)
+        chain_profiles[label] = profile_calls({
+            "compress": lambda: temporal.compress_chain(
+                frames, EB, keyframe_interval=interval, **kw),
+            "decompress": lambda: temporal.decompress_chain(blob)},
+            host=("compress",))
+        if label == CHAIN_CELLS[0][0]:
+            info["decode_stages"] = chain_decode_stages(blob, temporal, card)
+            chain_cut_agreement(frames, temporal, info)
+        chains.append(info)
+        results.append(info)
+        log(f"full size {label}: ratio {info['ratio']:.3f} "
+            f"({info['ratio_vs_snapshots']:.4f}x the snapshots'), compress "
+            f"{info['compress_MB_s']:.1f} MB/s, decompress "
+            f"{info['decompress_MB_s']:.1f} MB/s (warm medians of 3, raw MB "
+            f"of all {info['frames']} frames); card {card}")
+        del frames, blob, y
+    del isabel_frames
+    phase_done("2g chains")
     log("launches by path: " + json.dumps(launches))
     log(json.dumps({"full_size": results, "launches_by_path": launches}))
     profiles = {f"{cell[0]}{kind}": profile(*cell, api, field, **kw)
@@ -1906,6 +2263,7 @@ def main() -> None:
                                       (" v1", core, {"container_version": 1}),
                                       (" adaptive", eng, {"adaptive_eb": "tda"}))
                 for cell in (ISABEL, MIRANDA)}
+    profiles.update(chain_profiles)
     for cell, prof in profiles.items():
         for what, p in prof.items():
             busy = ("not measured (empty device trace)"
@@ -2065,11 +2423,32 @@ def main() -> None:
             check(err <= bound, f"{case}: round trip exceeds the ladder bound")
             n_adaptive += 1
     check(n_adaptive == 8, "adaptive manifest cases missing")
+    # the chain cases: 5 frames at keyframe interval 2 (both frame kinds
+    # and a mid-chain keyframe), (13, 11, 9) uniform, (17, 14, 12) adaptive
+    n_chain = 0
+    for case in sorted(k for k in manifest if k.startswith("chain")):
+        parts = case.split("/")
+        adaptive = parts[0] == "chain-adaptive"
+        evo, base, dtype = (parts[1], "gaussians", parts[2]) if adaptive \
+            else parts[1:]
+        frames = make_field_sequence(
+            evo, base, (17, 14, 12) if adaptive else (13, 11, 9), 5,
+            np.dtype(dtype), seed=5)
+        kw = {"adaptive_eb": "tda"} if adaptive else {}
+        blob = temporal.compress_chain(frames, EB, keyframe_interval=2, **kw)
+        check(hashlib.sha256(blob).hexdigest() == manifest[case],
+              f"{case}: chain hash differs from the manifest")
+        y = temporal.decompress_chain(blob)
+        bound = EB * (loose if adaptive else 1.0)
+        check(all(within_bound(f, y[t], bound) for t, f in enumerate(frames)),
+              f"{case}: a frame's round trip exceeds its bound")
+        n_chain += 1
+    check(n_chain == 12, "chain manifest cases missing")
     log(f"determinism: {n}/24 manifest hashes and {n}/24 plain hashes "
         "reproduced on the card, each with the default and the fused encode "
         f"path; {n}/24 v1 containers equal the CPU's and decode to the tiled "
         f"decode; {n_adaptive}/8 adaptive hashes under each of "
-        f"{len(device_mod.SOLVERS)} solver values")
+        f"{len(device_mod.SOLVERS)} solver values; {n_chain}/12 chain hashes")
     phase_done("5 determinism")
     log("seconds per phase: " + json.dumps(phase_s))
 
@@ -2077,7 +2456,8 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "full_size": results,
-         "ff32": ff32, "profiles": profiles, "roi": roi, "phase_s": phase_s,
+         "ff32": ff32, "chains": chains, "profiles": profiles, "roi": roi,
+         "phase_s": phase_s,
          "launches_by_path": launches, "kernels": rows,
          "seconds": time.perf_counter() - T0}, indent=1))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -136,16 +136,18 @@ def _compress_v1(field, eb, mode, preserve_order, solver, return_stats,
 
 def decompress(blob: bytes, device="cuda") -> np.ndarray:
     """Reconstruct the field, dispatching on the container version byte:
-    v2 (tiled) through the engine, v1 through the whole-field path."""
+    v2 (tiled) through the engine, v3 (a temporal chain) through
+    ``temporal.decompress_chain`` as a ``(n_frames, *shape)`` stack, v1
+    through the whole-field path."""
     version = bitstream.container_version(blob)
     if version == bitstream.VERSION_TILED:
         from .. import engine as _engine
 
         return _engine.decompress(blob, device=device)
     if version == bitstream.VERSION_CHAIN:
-        raise NotImplementedError(
-            "temporal chain (v3) containers are not ported yet: ROADMAP.md "
-            "module queue row 10 (temporal chains) brings them")
+        from .. import temporal as _temporal
+
+        return _temporal.decompress_chain(blob, device=device)
     return _decompress_v1(blob, device)
 
 

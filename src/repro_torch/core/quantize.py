@@ -121,6 +121,21 @@ def dequantize(bins: torch.Tensor, subbins: torch.Tensor, eps_abs: float,
     return ordered_to_float(m, dtype)
 
 
+def dequantize_tiles(bins: torch.Tensor, subbins: torch.Tensor,
+                     eps: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(C, E) bins and subbins with a (C,) f64 eps per tile -> values:
+    ``decode_base`` plus the subbin in ordered-int space.  A subbin
+    stream wider than the ordered ints (an adaptive f32 field's ordered
+    distances across a zero-straddling bin) accumulates in its own
+    width; the final ordered value always fits the dtype's."""
+    base = decode_base(bins, eps[:, None], dtype)
+    idt = int_dtype_for(dtype)
+    if subbins.element_size() > base.element_size():
+        o = float_to_ordered(base).to(subbins.dtype) + subbins
+        return ordered_to_float(o.to(idt), dtype)
+    return ordered_to_float(float_to_ordered(base) + subbins.to(idt), dtype)
+
+
 def max_abs_bin(dtype) -> float:
     """Largest |bin| for which the error-bound guarantee holds."""
     int_limit = float(np.iinfo(bin_dtype_for(np.dtype(dtype))).max) * 0.5

@@ -89,8 +89,9 @@ def _spectrum(x: np.ndarray):
     return spec, ks
 
 
-def _advect(x0: np.ndarray, t: int, velocity: float) -> np.ndarray:
-    """Periodic advection by ``velocity * t`` cells along every axis.
+def _advect(spec, ks, t: int, velocity: float) -> np.ndarray:
+    """Periodic advection by ``velocity * t`` cells along every axis, of
+    the field whose spectrum is ``spec`` (wavenumbers ``ks``).
 
     Implemented as a Fourier phase shift, so fractional (sub-cell)
     velocities produce the smooth frame-to-frame drift real transport
@@ -99,25 +100,34 @@ def _advect(x0: np.ndarray, t: int, velocity: float) -> np.ndarray:
     exactly the spatial gradient, i.e. what spatial delta already
     captures.)
     """
-    spec, ks = _spectrum(x0)
     phase = sum(k * (velocity * t) for k in ks)
     return np.real(np.fft.ifftn(spec * np.exp(-2j * np.pi * phase)))
 
 
-def _diffuse(x0: np.ndarray, t: int, rate: float) -> np.ndarray:
+def _diffuse(spec, ks, t: int, rate: float) -> np.ndarray:
     """Heat-equation evolution: spectral decay exp(-rate * k^2 * t)."""
-    spec, ks = _spectrum(x0)
     k2 = sum((2 * np.pi * k) ** 2 for k in ks)
     return np.real(np.fft.ifftn(spec * np.exp(-rate * k2 * t)))
 
 
 # Default evolution parameters: a CFL-respecting sub-cell transport
 # velocity and a mild diffusion rate — the frame-to-frame step sizes
-# production solvers actually emit at typical output cadence.
+# production solvers actually emit at typical output cadence.  Each
+# evolution takes the base field's spectrum (``_spectrum``) and a frame.
 SEQUENCE_EVOLUTIONS = {
-    "advect": lambda x0, t: _advect(x0, t, velocity=0.15),
-    "diffuse": lambda x0, t: _diffuse(x0, t, rate=0.25),
+    "advect": lambda spec, ks, t: _advect(spec, ks, t, velocity=0.15),
+    "diffuse": lambda spec, ks, t: _diffuse(spec, ks, t, rate=0.25),
 }
+
+
+def sequence_from_base(evolution: str, x0: np.ndarray, n_frames: int,
+                       dtype=None) -> list[np.ndarray]:
+    """The frames of :func:`make_field_sequence` from its f64 base field
+    ``x0``, whose spectrum is taken once for all frames."""
+    evolve = SEQUENCE_EVOLUTIONS[evolution]
+    spec, ks = _spectrum(x0)
+    dtype = dtype or np.float64
+    return [evolve(spec, ks, t).astype(dtype) for t in range(n_frames)]
 
 
 def make_field_sequence(evolution: str, base: str, shape, n_frames: int,
@@ -129,10 +139,8 @@ def make_field_sequence(evolution: str, base: str, shape, n_frames: int,
     equation decay); ``base`` is any :data:`FIELD_GENERATORS` name.
     Frame 0 is exactly ``make_scientific_field(base, shape, seed=seed)``.
     """
-    evolve = SEQUENCE_EVOLUTIONS[evolution]
     x0 = make_scientific_field(base, shape, np.float64, seed=seed)
-    dtype = dtype or np.float64
-    return [evolve(x0, t).astype(dtype) for t in range(n_frames)]
+    return sequence_from_base(evolution, x0, n_frames, dtype)
 
 
 def make_scientific_field(name: str, shape=None, dtype=None, seed: int = 0) -> np.ndarray:

@@ -21,7 +21,9 @@ import torch
 from ..core import topology
 from ..core.floatbits import float_to_ordered
 from ..core.quantize import decode_base, quantize_broadcast
-from ..kernels.fused_decode import decode_tiles_fused
+# the chain's dequantize stage, shared with kernel 3's plain version
+from ..core.quantize import dequantize_tiles  # noqa: F401
+from ..kernels.fused_decode import decode_tiles_fused, expand_ints
 from ..kernels.fused_encode import encode_ints_fused, encode_values_fused
 from ..kernels.subbin_sweep import solve_tiles_blockwise
 
@@ -234,6 +236,36 @@ def resident_encode_fused(x_h: torch.Tensor, eps: torch.Tensor,
     ``encode_values_fused``."""
     x_int = _interior(x_h).reshape(x_h.shape[0], -1).contiguous()
     return encode_values_fused(x_int, eps, bins_chunk, dtype, bins_store)
+
+
+# --------------------------------------------- temporal chain stages
+#
+# Frame chains (``repro_torch.temporal``) predict frame t's bins from the
+# previous frame's bins, which stay on the device between frames.  The
+# reference runs these four stages as XLA programs outside any Pallas
+# kernel; here they are torch ops on the chain's device.
+
+def residual_tiles(bins_enc: torch.Tensor, prev_bins: torch.Tensor) -> torch.Tensor:
+    """Temporal bin residual of one resident frame batch against the
+    previous frame's bins, wrapping in the bin dtype."""
+    return bins_enc - prev_bins
+
+
+def accumulate_bins(prev_bins: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    """Decode-side inverse of :func:`residual_tiles`."""
+    return prev_bins + residual.to(prev_bins.dtype)
+
+
+def decode_tiles(bitmap: torch.Tensor, packed: torch.Tensor, tile_elems: int,
+                 transform: str, out_dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of the integer encode over (C*cpt) section rows -> (C,
+    tile_elems) ints: decoded in the words' W-bit signed twin, then cast
+    to ``out_dtype``, which sign-extends a narrowed stream as the
+    reference's ``astype`` does."""
+    cpt = -(-tile_elems // packed.shape[1])
+    ints = expand_ints(bitmap, packed, packed.shape[0] // cpt, tile_elems,
+                       transform)
+    return ints.to(out_dtype)
 
 
 def _front_pack(flat: torch.Tensor, live: torch.Tensor):

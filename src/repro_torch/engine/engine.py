@@ -466,17 +466,36 @@ def decompress_roi(blob: bytes, region: tuple[slice, ...],
     regions (empty or reversed slices) return an empty array without
     touching the device.  Non-finite cells in the region restore from
     the sidecar.  Decodes exactly the tiles that intersect the region.
-    ``decode_path`` as in :func:`decode_tiles_for_region`.
+    ``decode_path`` as in :func:`decode_tiles_for_region`.  A v3 chain
+    of one frame reads frame 0; a longer chain raises ``ValueError``.
     """
     _check_decode_path(decode_path)
     if bitstream.container_version(blob) == bitstream.VERSION_CHAIN:
-        _not_in_slice("decompress_roi of a v3 chain container", 10,
-                      "temporal chains")
+        return _roi_from_chain(blob, region, plan or DEFAULT_PLAN, device)
     c = bitstream.read_container_v2(blob)
     layout = container_layout(c)
     tile_ids = tiles_for_region(layout, region)
     values = decode_tiles_for_region(c, tile_ids, plan, decode_path, device)
     return region_from_tiles(c, layout, region, dict(zip(tile_ids, values)))
+
+
+def _roi_from_chain(blob: bytes, region: tuple[slice, ...],
+                    plan: CompressionPlan, device) -> np.ndarray:
+    """ROI over a v3 chain: frame 0 of a one-frame chain (its sections
+    are a v2 snapshot's); a longer chain is refused with the container
+    version spelled out."""
+    from ..temporal import decompress_frame  # lazy: temporal imports engine
+
+    c = bitstream.read_container_v3(blob)
+    if c.n_frames != 1:
+        raise ValueError(
+            f"decompress_roi expects a v2 snapshot container, got a "
+            f"version {bitstream.VERSION_CHAIN} chain with {c.n_frames} "
+            "frames; pick a frame with temporal.decompress_frame first")
+    layout = container_layout(c)
+    tiles_for_region(layout, region)  # validate slices before decoding
+    full = decompress_frame(blob, 0, plan=plan, device=device)
+    return np.ascontiguousarray(full[tuple(region)])
 
 
 def region_from_tiles(c, layout: TileLayout, region: tuple[slice, ...],

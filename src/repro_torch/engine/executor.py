@@ -128,6 +128,8 @@ class GroupStreams:
     last_round: np.ndarray                            # (n_tiles,) int32
     bins_cpt: int
     subs_cpt: int
+    # with ``keep_bins``: each request's (n_tiles, *tile) bins, on the device
+    bins_resident: list[torch.Tensor] | None = None
 
 
 class Executor:
@@ -154,7 +156,8 @@ class Executor:
     def compress_tiles(self, x_tiles: np.ndarray, eps_tiles: np.ndarray,
                        layouts: tuple[TileLayout, ...], dtype,
                        preserve_order: bool = True,
-                       bins_store=None, adaptive: bool = False) -> GroupStreams:
+                       bins_store=None, adaptive: bool = False,
+                       prev_bins=None, keep_bins: bool = False) -> GroupStreams:
         """Run one compress group on the device.
 
         ``x_tiles`` is the group's concatenated haloed tiles with NaN
@@ -165,6 +168,14 @@ class Executor:
         at each cell's decode base, the subbin the ordered distance
         climbed (``device.resident_frontend_adaptive``).  Plain groups
         upload no halo tables and run no flags and no solve.
+
+        A frame chain's step (``repro_torch.temporal``) passes
+        ``keep_bins``, which keeps every request's bins on the device
+        (``GroupStreams.bins_resident``), and, for a residual frame,
+        ``prev_bins``: each request's bins of the frame before, on the
+        device.  The bins stream then holds the residual against them,
+        zigzag-encoded, and the quantize stays a stage of its own (no
+        fused value encode).
         """
         layout0 = layouts[0]
         n_total = x_tiles.shape[0]
@@ -184,8 +195,10 @@ class Executor:
         fused = use_fused_encode(self.encode_path,
                                  max_capacity * layout0.tile_elems,
                                  self.device.type == "cuda")
-        values_fused = fused and not preserve_order and tdt == torch.float32
+        values_fused = (fused and not preserve_order and not keep_bins
+                        and tdt == torch.float32)
         chunks = []
+        resident = []
         for lo, hi in spans:
             r0, r1 = int(offsets[lo]), int(offsets[hi])
             n_chunk = r1 - r0
@@ -211,10 +224,20 @@ class Executor:
                 bins_enc, bins_m, vals_m = device.resident_quantize(
                     x_dev, eps_dev, tdt, preserve_order)
             del x_dev
+            stream, transform = bins_enc, "delta"
+            if prev_bins is not None:
+                prev = list(prev_bins[lo:hi])
+                if pad:
+                    prev.append(bins_enc.new_zeros((pad,) + layout0.tile))
+                stream = device.residual_tiles(bins_enc, torch.cat(prev))
+                transform = "zigzag"
+            # a narrower store wraps, as the reference's astype does
             bins_s = device.encode_tiles(
-                bins_enc.to(bins_tdt).reshape(capacity, -1), bins_chunk,
-                "delta")
-            del bins_enc
+                stream.to(bins_tdt).reshape(capacity, -1), bins_chunk,
+                transform)
+            if keep_bins:
+                resident.extend(torch.split(bins_enc[:n_chunk], sizes[lo:hi]))
+            del bins_enc, stream
             if not preserve_order:
                 chunks.append([n_chunk, capacity, bins_s, None])
                 continue
@@ -292,7 +315,7 @@ class Executor:
         else:
             local1 = last_round = np.zeros(n_total, np.int32)
         return GroupStreams(bins_s, subs_s, local1, last_round, bins_cpt,
-                            subs_cpt)
+                            subs_cpt, resident if keep_bins else None)
 
 # ------------------------------------------------------------- decode
 

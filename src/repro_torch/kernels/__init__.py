@@ -3,8 +3,9 @@ PyTorch version.
 
 A wrapper takes its plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernel (built from ``csrc/`` by
-``nvcc`` at first use) or raises.  ``LAUNCHES`` counts kernel launches.
+``nvcc`` at first use) or raises.  ``LAUNCHES`` counts kernel launches,
+``TRANSFORM_LAUNCHES`` those of the integer encode by word transform.
 """
-from ._lib import LAUNCHES, build, reset_launches
+from ._lib import LAUNCHES, TRANSFORM_LAUNCHES, build, reset_launches
 
-__all__ = ["LAUNCHES", "build", "reset_launches"]
+__all__ = ["LAUNCHES", "TRANSFORM_LAUNCHES", "build", "reset_launches"]

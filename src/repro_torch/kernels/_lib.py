@@ -11,6 +11,8 @@ phase-clock build of ``phase_clocks.py``).
 
 ``LAUNCHES`` counts kernel launches by kernel name; a wrapper adds one
 exactly where it launches its kernel, never on the plain path.
+``TRANSFORM_LAUNCHES`` counts the same launches of the integer encode
+(kernel 2) by its word transform, as ``encode_ints_fused_<transform>``.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: Counter = Counter()
+TRANSFORM_LAUNCHES: Counter = Counter()
 
 _LOCK = threading.Lock()
 _LIBS: dict[tuple[str, tuple], ctypes.CDLL] = {}
@@ -44,6 +47,7 @@ _FNS: dict[tuple[str, str, tuple], ctypes._CFuncPtr] = {}
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    TRANSFORM_LAUNCHES.clear()
 
 
 def _nvcc() -> str:

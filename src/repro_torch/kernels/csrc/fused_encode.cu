@@ -8,8 +8,9 @@
 // What it computes, per 16 KiB chunk of a (batch, elems) integer tile
 // batch (each tile padded with zeros to whole chunks):
 //   - the word transform: delta (each element minus its predecessor in
-//     the chunk, the first kept) then zigzag, or a raw reinterpretation,
-//     both wrapping in the word width W;
+//     the chunk, the first kept) then zigzag, zigzag alone (a chain's bin
+//     residuals), or a raw reinterpretation, all wrapping in the word
+//     width W;
 //   - the BIT_W transpose: plane b (MSB first) goes to words
 //     [b*L/W, (b+1)*L/W), bit j of a plane word (MSB first) being bit
 //     W-1-b of word j;
@@ -87,7 +88,7 @@ __host__ __device__ constexpr int block_threads() {
 }
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Transform { kRaw = 0, kDelta = 1 };
+enum Transform { kRaw = 0, kDelta = 1, kZigzag = 2 };
 
 template <int W> struct Word;
 template <> struct Word<16> { using S = int16_t; using U = uint16_t; };
@@ -113,7 +114,8 @@ __device__ __forceinline__ uint32_t spread8(uint32_t h) {
 // W = 16: thread t owns words 32t .. 32t + 31 of the row (kThreads * 32
 // = L), x[i] holding words 2i (low half) and 2i + 1, and `pred()` gives
 // the predecessor of word 32t in its high half (0 for word 0), read
-// only for the delta: delta and zigzag on halfword pairs, then two
+// only for the delta: delta and zigzag on halfword pairs (the zigzag
+// alone in mode kZigzag), then two
 // 16 x 16 transposes in registers (transpose16x2) give its two columns
 // q = 2t, 2t + 1 of every plane, stored as one 32-bit word a lane (a
 // warp's 32 lanes: 128 contiguous bytes of the plane) and balloted into
@@ -136,6 +138,10 @@ __device__ __forceinline__ void encode_regs16(uint32_t (&x)[16], Pred pred,
       // zigzag per halfword: (d << 1) ^ (d >> 15), the shift arithmetic
       x[i] = ((d << 1) & 0xFFFEFFFEu) ^ __vcmplts2(d, 0u);
     }
+  } else if (mode == kZigzag) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      x[i] = ((x[i] << 1) & 0xFFFEFFFEu) ^ __vcmplts2(x[i], 0u);
   }
   // rows of the two matrices: y[r] = words r (low) and 16 + r (high)
   uint32_t y[16];
@@ -196,7 +202,8 @@ __device__ __forceinline__ void encode_row16(const int16_t* src, long long e0,
 
 // W = 32: thread t (of 128) owns words 32t .. 32t + 31 of the row in x,
 // and `pred()` gives the predecessor of word 32t (0 for word 0), read
-// only for the delta: delta and zigzag, then the transpose in registers
+// only for the delta: delta and zigzag (zigzag alone in mode kZigzag),
+// then the transpose in registers
 // (transpose32) gives its column q = t of every plane, stored straight to
 // device memory, 128 contiguous bytes a warp, and balloted into the
 // bitmap.  Adds the row's count to `total`.
@@ -218,6 +225,10 @@ __device__ __forceinline__ void encode_regs32(uint32_t (&x)[32], Pred pred,
       // zigzag: (d << 1) ^ (d >> 31), the shift arithmetic
       x[i] = (d << 1) ^ (uint32_t)((int32_t)d >> 31);
     }
+  } else if (mode == kZigzag) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      x[i] = (x[i] << 1) ^ (uint32_t)((int32_t)x[i] >> 31);
   }
   transpose32(x);  // x[p]: plane p's word at column t
   uint32_t* dst = words + row * L;
@@ -298,6 +309,9 @@ __device__ __forceinline__ void encode_row64(const int64_t* src, long long e0,
           // zigzag: (d << 1) ^ (d >> (W-1)), the right shift arithmetic
           const U sign = (U)((S)d < 0 ? ~(U)0 : (U)0);
           d = (U)((U)(d << 1) ^ sign);
+        } else if (mode == kZigzag) {
+          const U sign = (U)((S)d < 0 ? ~(U)0 : (U)0);
+          d = (U)((U)(d << 1) ^ sign);
         }
         x[h] = d;
       }
@@ -352,7 +366,13 @@ __device__ __forceinline__ void encode_chunk(
 }
 
 
-template <int W>
+// Two instantiations per width: raw and delta share one, the mode a
+// uniform branch, and the zigzag has its own.  In the first the mode is
+// `mode & 1`, which the compiler knows is never kZigzag, so the zigzag
+// branches fold away and the raw and delta code stays what it was before
+// the zigzag came (a kernel per transform ran the 16-bit delta 2% slower,
+// by `encode_timing.py`).
+template <int W, bool ZIGZAG>
 __global__ void __launch_bounds__(block_threads<W>())
 encode_kernel(const typename Word<W>::S* __restrict__ ints,
               typename Word<W>::U* __restrict__ bitmap,
@@ -367,7 +387,24 @@ encode_kernel(const typename Word<W>::S* __restrict__ ints,
   const long long chunk = row - tile * cpt;
   CLOCK_START();
   encode_chunk<W>(ints + tile * elems, chunk * L, elems, row, bitmap, words,
-                  counts, mode, stage, &total);
+                  counts, ZIGZAG ? (int)kZigzag : (mode & 1), stage, &total);
+}
+
+template <int W>
+void launch_encode_ints(const void* ints, void* bitmap, void* words,
+                        void* counts, unsigned rows, long long elems, int cpt,
+                        int mode, cudaStream_t st) {
+  using S = typename Word<W>::S;
+  using U = typename Word<W>::U;
+  const auto in = static_cast<const S*>(ints);
+  const auto bm = static_cast<U*>(bitmap);
+  const auto out = static_cast<U*>(words);
+  const auto cnt = static_cast<int32_t*>(counts);
+  constexpr int T = block_threads<W>();
+  if (mode == kZigzag)
+    encode_kernel<W, true><<<rows, T, 0, st>>>(in, bm, out, cnt, elems, cpt, mode);
+  else
+    encode_kernel<W, false><<<rows, T, 0, st>>>(in, bm, out, cnt, elems, cpt, mode);
 }
 
 // ---- the value encode (plain f32 path)
@@ -597,7 +634,7 @@ const char* lopc_errstr(int err) {
 }
 
 // ints (batch, elems) intW; bitmap (batch*cpt, L/W), words (batch*cpt, L)
-// W-bit words; counts (batch*cpt,) int32.  mode: 0 raw, 1 delta.
+// W-bit words; counts (batch*cpt,) int32.  mode: 0 raw, 1 delta, 2 zigzag.
 int lopc_encode_ints(const void* ints, void* bitmap, void* words,
                      void* counts, long long batch, long long elems,
                      long long word_bits, long long mode, void* stream) {
@@ -605,28 +642,20 @@ int lopc_encode_ints(const void* ints, void* bitmap, void* words,
   const long long cpt = (elems + chunk_len - 1) / chunk_len;
   const long long rows = batch * cpt;
   if (rows == 0) return 0;
-  if (rows > 0x7fffffffLL || mode < 0 || mode > 1)
+  if (rows > 0x7fffffffLL || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const int m = (int)mode, c = (int)cpt;
+  const unsigned r = (unsigned)rows;
   switch (word_bits) {
     case 16:
-      encode_kernel<16><<<(unsigned)rows, block_threads<16>(), 0, st>>>(
-          static_cast<const int16_t*>(ints), static_cast<uint16_t*>(bitmap),
-          static_cast<uint16_t*>(words), static_cast<int32_t*>(counts),
-          elems, c, m);
+      launch_encode_ints<16>(ints, bitmap, words, counts, r, elems, c, m, st);
       break;
     case 32:
-      encode_kernel<32><<<(unsigned)rows, block_threads<32>(), 0, st>>>(
-          static_cast<const int32_t*>(ints), static_cast<uint32_t*>(bitmap),
-          static_cast<uint32_t*>(words), static_cast<int32_t*>(counts),
-          elems, c, m);
+      launch_encode_ints<32>(ints, bitmap, words, counts, r, elems, c, m, st);
       break;
     case 64:
-      encode_kernel<64><<<(unsigned)rows, block_threads<64>(), 0, st>>>(
-          static_cast<const int64_t*>(ints), static_cast<uint64_t*>(bitmap),
-          static_cast<uint64_t*>(words), static_cast<int32_t*>(counts),
-          elems, c, m);
+      launch_encode_ints<64>(ints, bitmap, words, counts, r, elems, c, m, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

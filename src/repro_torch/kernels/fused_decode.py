@@ -20,17 +20,23 @@ import torch
 from ..codecs.bitshuffle import bitunshuffle
 from ..codecs.rze import rze_decode
 from ..codecs.transforms import delta_decode, width, zigzag_decode
-from ..core.floatbits import float_to_ordered, int_dtype_for, ordered_to_float
-from ..core.quantize import decode_base
+from ..core.quantize import dequantize_tiles
 from . import _lib
+from .fused_encode import TRANSFORMS
 from .ref import dequantize_ff32_ref
 
 
-def _expand_ints(bitmap, packed, n_tiles: int, tile_elems: int,
-                 transform: str) -> torch.Tensor:
-    """Section rows -> (n_tiles, tile_elems) signed ints."""
-    words = bitunshuffle(rze_decode(bitmap, packed))
-    chunks = delta_decode(zigzag_decode(words)) if transform == "delta" else words
+def expand_ints(bitmap, packed, n_tiles: int, tile_elems: int,
+                transform: str) -> torch.Tensor:
+    """Section rows -> (n_tiles, tile_elems) signed ints in the words'
+    width: the inverse of the integer encode's ``transform``."""
+    if transform not in TRANSFORMS:
+        raise ValueError(f"unknown transform {transform!r} (want {TRANSFORMS})")
+    chunks = bitunshuffle(rze_decode(bitmap, packed))
+    if transform != "raw":
+        chunks = zigzag_decode(chunks)
+    if transform == "delta":
+        chunks = delta_decode(chunks)
     rows, chunk_len = chunks.shape
     cpt = rows // n_tiles
     return chunks.reshape(n_tiles, cpt * chunk_len)[:, :tile_elems]
@@ -40,19 +46,12 @@ def decode_tiles_plain(bitmap, packed, sub_bitmap, sub_packed, eps,
                        tile_elems: int, dtype: torch.dtype) -> torch.Tensor:
     """Op-for-op torch version of the Pallas kernel body."""
     batch = eps.shape[0]
-    bins = _expand_ints(bitmap, packed, batch, tile_elems, "delta")
+    bins = expand_ints(bitmap, packed, batch, tile_elems, "delta")
     if sub_bitmap is None:
         subs = torch.zeros_like(bins)
     else:
-        subs = _expand_ints(sub_bitmap, sub_packed, batch, tile_elems, "raw")
-    base = decode_base(bins, eps[:, None], dtype)
-    idt = int_dtype_for(dtype)
-    # a subbin stream wider than the ordered ints accumulates in its own
-    # width; the final ordered value always fits idt
-    if subs.element_size() > base.element_size():
-        o = float_to_ordered(base).to(subs.dtype) + subs
-        return ordered_to_float(o.to(idt), dtype)
-    return ordered_to_float(float_to_ordered(base) + subs.to(idt), dtype)
+        subs = expand_ints(sub_bitmap, sub_packed, batch, tile_elems, "raw")
+    return dequantize_tiles(bins, subs, eps, dtype)
 
 
 def decode_tiles_fused(bitmap, packed, sub_bitmap, sub_packed, eps,

@@ -1,7 +1,7 @@
 """Fused encodes (port of ``repro.kernels.fused_encode``).
 
 ``encode_ints_fused``: (batch, E) signed ints -> per 16 KiB chunk:
-[delta -> zigzag | reinterpret] -> BIT_W -> RZE bitmap, as (bitmap
+[delta -> zigzag | zigzag | reinterpret] -> BIT_W -> RZE bitmap, as (bitmap
 (batch*cpt, L/W), shuffled words (batch*cpt, L), counts (batch*cpt,)
 int32).  Words travel in the signed twin of their width.
 
@@ -21,7 +21,7 @@ from ..core.quantize import quantize_broadcast
 from . import _lib
 
 # index = the kernel's transform code
-TRANSFORMS = ("raw", "delta")
+TRANSFORMS = ("raw", "delta", "zigzag")
 
 
 def encode_ints_plain(ints: torch.Tensor, chunk_len: int, transform: str):
@@ -34,6 +34,8 @@ def encode_ints_plain(ints: torch.Tensor, chunk_len: int, transform: str):
     chunks = torch.cat([ints, pad], dim=1).reshape(b * n_chunks, chunk_len)
     if transform == "delta":
         words = zigzag_encode(delta_encode(chunks))
+    elif transform == "zigzag":
+        words = zigzag_encode(chunks)
     elif transform == "raw":
         words = chunks
     else:
@@ -66,6 +68,7 @@ def encode_ints_fused(ints: torch.Tensor, chunk_len: int, transform: str):
     _lib.call("fused_encode", "lopc_encode_ints", ints, bitmap, words, counts,
               b, e, w, TRANSFORMS.index(transform))
     _lib.LAUNCHES["encode_ints_fused"] += 1
+    _lib.TRANSFORM_LAUNCHES[f"encode_ints_fused_{transform}"] += 1
     return bitmap, words, counts
 
 

@@ -8,8 +8,9 @@ Needs a CUDA card and ``nvcc``.  It compresses and decompresses the
 ISABEL-shaped (100x500x500 float32, turbulence) and Miranda-shaped
 (256x384x384 float64, gaussians) fields of ``chip_smoke.py`` through the
 engine, on both the order-preserving and the plain path, and the
-ISABEL-shaped field through the whole-field (v1) compressor, and keeps
-the operands of the first call of each kernel signature.  Then it builds
+ISABEL-shaped field through the whole-field (v1) compressor and, as a
+two-frame temporal chain (its residual frame: kernel 2's zigzag), and
+keeps the operands of the first call of each kernel signature.  Then it builds
 ``fused_decode.cu``, ``fused_encode.cu`` and ``bitshuffle.cu`` again with
 ``-DLOPC_PHASE_CLOCKS`` (``csrc/clocks.cuh``: thread 0 of each CTA reads
 ``clock64()`` after the barrier that ends each phase and sums the cycles
@@ -36,8 +37,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import core, engine
-from ..data.fields import make_scientific_field
+from .. import core, engine, temporal
+from ..data.fields import make_field_sequence, make_scientific_field
 from ..engine import device
 from . import _lib, bitshuffle_kernel, fused_decode, fused_encode
 
@@ -73,8 +74,9 @@ def _signature(name: str, args) -> str:
 
 def record_calls() -> dict:
     """The operands of the first call of each kernel signature of the
-    engine's compress and decompress of both fields, both paths, and of
-    the v1 compress and decompress of the f32 field."""
+    engine's compress and decompress of both fields, both paths, of the
+    v1 compress and decompress of the f32 field, and of a two-frame chain
+    compress of the f32 field (advected)."""
     kept: dict[str, tuple] = {}
     real = {n: getattr(w[2], n) for n, w in WRAPPERS.items()}
 
@@ -93,6 +95,8 @@ def record_calls() -> dict:
                 engine.decompress(engine.compress(x, 1e-2, **kw))
             if dtype == "float32":
                 core.decompress(core.compress(x, 1e-2, container_version=1))
+                temporal.compress_chain(make_field_sequence(
+                    "advect", gen, shape, 2, np.dtype(dtype), seed=0), 1e-2)
     finally:
         for n, f in real.items():
             setattr(WRAPPERS[n][2], n, f)

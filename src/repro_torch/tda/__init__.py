@@ -1,5 +1,6 @@
 """Topological data analysis of fields (port of ``repro.tda``): the
-critical-point census and the topology-adaptive error-bound ladder."""
+critical-point census, the topology-adaptive error-bound ladder, and the
+quality metrics PSNR and SSIM."""
 from .adaptive import ladder_indices
 from .critpoints import (
     classify_critical_points,
@@ -7,6 +8,7 @@ from .critpoints import (
     critical_signature,
     local_order_violations,
 )
+from .quality import psnr, ssim
 
 __all__ = [
     "classify_critical_points",
@@ -14,4 +16,6 @@ __all__ = [
     "critical_signature",
     "ladder_indices",
     "local_order_violations",
+    "psnr",
+    "ssim",
 ]

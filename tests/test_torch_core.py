@@ -342,13 +342,17 @@ def test_arguments_outside_the_slice_name_their_roadmap_row():
                     ({"group_cb": print}, "row 12")]:
         with pytest.raises(NotImplementedError, match=row):
             engine.compress_many([x], 1e-2, device="cpu", **kw)
+    # v3 chains (row 10) are ported: the version byte routes a chain to
+    # the (n_frames, *shape) stack, and a multi-frame chain's ROI raises
+    # the reference's ValueError
     chain = (DATA / "fixture_v3.lopc").read_bytes()
-    with pytest.raises(NotImplementedError, match="row 10"):
+    with pytest.raises(ValueError, match="pick a frame"):
         engine.decompress_roi(chain, (slice(0, 2),) * 3, device="cpu")
     from repro_torch import core
 
-    with pytest.raises(NotImplementedError, match="row 10"):
-        core.decompress(chain, device="cpu")
+    want = np.load(DATA / "expected.npz")["v3"]
+    got = core.decompress(chain, device="cpu")
+    assert got.shape == want.shape and got.tobytes() == want.tobytes()
     # the reference's own argument errors
     with pytest.raises(ValueError, match="requires preserve_order=True"):
         engine.compress(x, 1e-2, preserve_order=False, adaptive_eb="tda",

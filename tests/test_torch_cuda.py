@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import quantize, topology
 from repro_torch.core.floatbits import float_to_ordered
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, TRANSFORM_LAUNCHES, reset_launches
 from repro_torch.kernels import fused_decode as pt_fd
 from repro_torch.kernels import fused_encode as pt_fe
 from repro_torch.kernels import subbin_sweep as pt_ss
@@ -368,7 +368,7 @@ def test_cuda_decode_without_subbins_every_width(rng, dev, bins_word, dtype):
 
 # ------------------------------ kernels 2 and 4: every width and edge
 
-@pytest.mark.parametrize("transform", ["delta", "raw"])
+@pytest.mark.parametrize("transform", ["delta", "raw", "zigzag"])
 @pytest.mark.parametrize("word", WORDS)
 def test_cuda_encode_every_width(rng, dev, word, transform):
     for batch, elems in SHAPES + [(3, 100)]:
@@ -384,9 +384,10 @@ def test_cuda_encode_every_width(rng, dev, word, transform):
                 if case == "zero":
                     ints[0] = 0
             x = _t(ints).to(dev)
-            LAUNCHES.clear()
+            reset_launches()
             got = pt_fe.encode_ints_fused(x, CHUNK[word], transform)
             assert LAUNCHES["encode_ints_fused"] == 1
+            assert TRANSFORM_LAUNCHES[f"encode_ints_fused_{transform}"] == 1
             want = pt_fe.encode_ints_plain(x, CHUNK[word], transform)
             for a, b in zip(got, want):
                 assert _bits_equal(a, b), (batch, elems, case)

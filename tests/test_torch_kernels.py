@@ -78,6 +78,7 @@ def _ints(rng, batch, elems, word):
     (2, "delta", 128), (4, "delta", 128), (8, "delta", 128),
     (2, "raw", 128), (4, "raw", 128),
     (2, "delta", 8192 + 100), (4, "raw", 4096 + 37), (8, "delta", 2048 + 5),
+    (2, "zigzag", 8192 + 100), (4, "zigzag", 128), (8, "zigzag", 128),
 ])
 def test_encode_plain_matches_pallas(rng, word, transform, elems):
     ints = _ints(rng, 3, elems, word)

@@ -350,6 +350,7 @@ def model_encode(ints: np.ndarray, transform: str):
         d = row.copy()
         if transform == "delta":
             d[1:] = row[1:] - row[:-1]
+        if transform != "raw":  # the zigzag: after the delta, or alone
             sign = (d.view(SIGNED[w]) < 0).astype(u) * u(~u(0))
             d = (d << u(1)) ^ sign
         if w == 16:  # thread t: words 32t .. 32t + 31, two halves a register
@@ -417,7 +418,7 @@ def model_encode(ints: np.ndarray, transform: str):
             np.array(counts, dtype=np.int32))
 
 
-@pytest.mark.parametrize("transform", ["delta", "raw"])
+@pytest.mark.parametrize("transform", ["delta", "raw", "zigzag"])
 @pytest.mark.parametrize("w", WIDTHS)
 def test_encode_model_equals_plain(rng, w, transform):
     elems = geometry(w)["L"] + 37

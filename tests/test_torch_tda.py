@@ -2,7 +2,8 @@
 reference, on the CPU: critical signatures and classes, the
 critical-point errors and local-order counts, ``order_flags_all``, and
 the adaptive eb ladder (its per-tile scores and ``ladder_indices`` rung
-for rung, including a field where ``tighten_ladder`` raises rungs).
+for rung, including a field where ``tighten_ladder`` raises rungs), and
+the quality metrics ``psnr`` and ``ssim``.
 
 Inputs are made from seeds with numpy and handed to both packages.
 Every comparison is exact.
@@ -22,6 +23,7 @@ from repro.core import topology as ref_topology
 from repro.data.fields import make_scientific_field as ref_field
 from repro.engine.plan import CompressionPlan
 from repro.tda import critpoints as ref_cp
+from repro.tda import quality as ref_quality
 from repro_torch.core import topology as pt_topology
 from repro_torch.engine.plan import CompressionPlan as PtPlan
 from repro_torch.tda import adaptive as pt_adaptive
@@ -224,3 +226,26 @@ def test_ladder_rejects_a_non_finite_field():
     flat = np.full((8, 8), 3.0)
     assert not pt_adaptive.ladder_indices(flat, PtPlan().layout_for(flat.shape),
                                           0.1, device="cpu").any()
+
+
+@pytest.mark.parametrize("shape", [(300,), (23, 19), (11, 9, 7)])
+def test_quality_metrics_match_reference(rng, shape):
+    from repro_torch import tda
+
+    assert {"psnr", "ssim"} <= set(tda.__all__)
+    x = rng.standard_normal(shape)
+    noisy = x + 1e-3 * rng.standard_normal(shape)
+    flat = np.full(shape, 2.5)
+    cases = [(x, noisy, 7), (x.astype(np.float32), noisy, 3), (x, x, 7),
+             (flat, flat + 1e-6, 7), (flat, flat, 7), (x, noisy, 1)]
+    for o, r, window in cases:
+        for name in ("psnr", "ssim"):
+            kw = {"window": window} if name == "ssim" else {}
+            want = getattr(ref_quality, name)(o, r, **kw)
+            got = getattr(tda, name)(o, r, **kw)
+            assert type(got) is float
+            assert np.array_equal(got, want), (name, window)
+    assert tda.psnr(x, x) == float("inf")
+    assert tda.psnr(flat, flat + 1e-6) == float("-inf")
+    with pytest.raises(ValueError, match="window"):
+        tda.ssim(x, x, window=0)
