@@ -38,7 +38,8 @@ Phases; any failure exits nonzero before the last line is printed:
    bit-equal to a whole-field plain reconstruction on the card
    (``quantize_broadcast`` then ``decode_base`` on the untiled field),
    and ISABEL's plain container byte-equal to the CPU path's.  Times a
-   warm compress and decompress (median of 3) and profiles one of each.
+   warm compress and decompress (median of 3) and profiles one of each
+   (ISABEL's only).
 2d. The whole-field (v1) compressor at full size: the same two fields
    through ``repro_torch.core.compress(x, 1e-2, container_version=1)``
    (``solver="auto"``: the band-solve kernel) and
@@ -53,7 +54,7 @@ Phases; any failure exits nonzero before the last line is printed:
    decodes the v1 container to the same bits, and that ISABEL's v1
    sections, decoded and encoded again on the CPU with the plain
    versions, are the same bytes.  Times a warm compress and decompress
-   (median of 3) and profiles one of each.
+   (median of 3) and profiles one of each (ISABEL's only).
 2c. Region reads: on the order-preserving container of each field and
    on ISABEL's plain one, ``decompress_roi`` of a box that straddles
    tile boundaries on every axis, a box inside one tile and a one-cell
@@ -79,7 +80,7 @@ Phases; any failure exits nonzero before the last line is printed:
    same bytes, and the full container must decode on the CPU to the
    card's bits; so must Miranda's 16-row cut at eb 1e-2, uniform and
    adaptive (its real stream widths and the 64-bit lane).  Times a warm compress and decompress (median of 3) and
-   profiles one of each (ISABEL and Miranda at eb 1e-2).
+   profiles one of each (ISABEL's at eb 1e-2).
 2f. The FF32 contract at full size: ISABEL at eps =
    ``effective_eps(1e-2 * range)``: ``ff32_domain_ok``, then
    ``kernels.ops.quantize_ff32`` -> ``core.subbin.solve_subbins`` (the
@@ -107,9 +108,35 @@ Phases; any failure exits nonzero before the last line is printed:
    seed ``encode_appended_frame`` to the chain's own sections of frame k
    (one residual frame, one keyframe).  A cut of isabel's chain (4
    frames, interval 3, 16x256x256), uniform and adaptive, must give the
-   CPU's bytes and decode.  Times a warm compress and decompress (median
-   of 3, raw MB of all frames), profiles one of each, and times the
-   chain decode's torch stages on one frame beside kernel 3.
+   CPU's bytes and decode.  Times one warm compress and decompress (raw
+   MB of all frames), profiles one of each of the ISABEL chains (the
+   host's shares of the first one's compress), and times the chain decode's torch stages
+   on one frame beside kernel 3.
+2h. The serving stack at full size (``repro_torch.store``,
+   ``repro_torch.service``, ``repro_torch.obs``), launches counted per
+   path (store, service: their own calls, not the references they are
+   held to): a store (default plan, on the card) ``put``s
+   phase 2's ISABEL container and ``write``s the field again (the same
+   bytes); phase 2c's straddling box read cold must decode exactly its
+   60 tiles and fetch under 5% of the payload file, read again from the
+   tile cache must decode none, both equal to the full decode's crop; 3
+   of phase 2g's ISABEL frames written as a chain and a 4th appended must
+   equal ``compress_chain`` of the 4 frame by frame, and ``read_frame(3)``
+   ``decompress_frame``; ``tests/data/make_fixtures.py``'s store calls
+   replayed on the card must give ``tests/data/store/`` byte for byte.
+   Then 8 client threads, released together, each compress ISABEL's
+   first 100 - 10 i planes through the service, decompress the
+   container and read a box of the stored field (clients 0-3 the box
+   shifted by one tile, 4-7 the box itself): every container equals a
+   direct compress, every decode the direct decompress, every box the
+   full decode's crop, the mean batch occupancy exceeds 1 and no kernel
+   library loads; the aggregate compress MB/s is logged beside the
+   direct calls' (warm) and the latency percentiles.  Last, one traced
+   service compress, decompress and box read of ISABEL and a ``python -m
+   repro_torch.launch.serve --store --trace-out`` subprocess: both
+   traces written to the run's output directory and validated against
+   ``benchmarks/baselines/trace_schema.json`` in single mode, each
+   ``exec.*`` stage's summed ms logged against ``engine.compress_group``.
 3. Width runs: the same entry points on full-size fields at bounds that
    reach the int32 and int64 bins widths (ISABEL's also on the plain
    path), on 1-D and 2-D fields whose tiles are the (1,1,4096) and
@@ -1136,13 +1163,15 @@ def chain_cut_agreement(frames, temporal, info: dict) -> None:
         f"card's chains equal the CPU's ({info['cpu_chain_cut_s']:.1f} s)")
 
 
-def chain_timing(frames, interval, kw, blob, y, temporal, info: dict) -> None:
-    """Warm ``compress_chain`` and ``decompress_chain``, median of 3, in
-    raw MB/s; every run gives the same bytes and values again."""
+def chain_timing(frames, interval, kw, blob, y, temporal, info: dict,
+                 reps: int) -> None:
+    """Warm ``compress_chain`` and ``decompress_chain``, median of
+    ``reps``, in raw MB/s; every run gives the same bytes and values
+    again."""
     import torch
 
     tc, td = [], []
-    for _ in range(3):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         b2 = temporal.compress_chain(frames, EB, keyframe_interval=interval, **kw)
@@ -1203,6 +1232,348 @@ def chain_decode_stages(blob, temporal, card: str) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in out.items()
                     if k.endswith("_ms")) + f"; card {card}")
     return out
+
+
+# ---- 2h: the serving stack
+#
+# clients 0-3 of the service read phase 2c's straddling box shifted by
+# one (16, 16, 64) tile, clients 4-7 the box itself (a hot region)
+BOX_SHIFTS = ((16, 0, 0), (0, 16, 0), (0, 0, 64), (16, 16, 64))
+SERVE_CLIENTS = 8
+# the store's region read must fetch under this share of its payload file
+ROI_BYTES_SHARE = 0.05
+
+
+def _shifted(region, shift):
+    return tuple(slice(sl.start + d, sl.stop + d) for sl, d in zip(region, shift))
+
+
+def _single_mode_schema() -> dict:
+    """``benchmarks/baselines/trace_schema.json`` as
+    ``benchmarks/check_trace.py --mode single`` reads it: the cluster's
+    names dropped."""
+    schema = json.loads(
+        (ROOT / "benchmarks" / "baselines" / "trace_schema.json").read_text())
+    cluster = ("router.", "lprc.", "worker.")
+    schema["require_names"] = [n for n in schema.get("require_names", [])
+                               if not n.startswith(cluster)]
+    schema["nest_under"] = {k: v for k, v in schema.get("nest_under", {}).items()
+                            if not k.startswith(cluster + ("router",))}
+    return schema
+
+
+def _store_payload(store, name: str) -> bytes:
+    return (store.root / store.info(name)["payload"]).read_bytes()
+
+
+def store_path(store, x, blob, y, frames, eng, executor, kernels,
+               temporal) -> tuple[dict, dict]:
+    """Phase 2h, the store: ``put`` phase 2's isabel container, ``write``
+    the field again (same bytes), the straddling box read cold (exactly
+    its tiles decoded, under 5% of the payload file read) and cached (no
+    decode), both equal to the full decode's crop; a 3-frame chain
+    written, a 4th appended, its frames equal to ``compress_chain`` of the
+    4 and ``read_frame(3)`` to ``decompress_frame``; the committed
+    fixture's calls replayed on the card, byte for byte.  Returns the
+    timings and the launches of the store's own calls: the references
+    (``compress_chain``, ``decompress_frame``) run after the count is read."""
+    import numpy as np
+
+    from repro_torch.core import bitstream
+    from repro_torch.core.quantize import abs_bound_from_mode
+    from repro_torch.data.fields import make_field_sequence, make_scientific_field
+    from repro_torch.engine.plan import CompressionPlan
+    from repro_torch.store import LopcStore
+
+    box = ROI_REGIONS["straddle"]
+    info = {}
+    ids = eng.tiles_for_region(
+        eng.container_layout(bitstream.read_container_v2(blob)), box)
+    crop = np.ascontiguousarray(y[box]).tobytes()
+    # a chain of 3 frames, then a 4th appended: one absolute bound that
+    # is every frame's NOA bound or tighter, so the chain of 4 pins it too
+    eb_abs = min(abs_bound_from_mode(f, EB, "noa") for f in frames[:4])
+    data = ROOT / "tests" / "data"
+    fx_root = store.root.parent / "fixture"
+    kernels.reset_launches()
+    store.put("isabel-put", blob)
+    check(_store_payload(store, "isabel-put") == blob,
+          "store.put changed the container's bytes")
+    t0 = time.perf_counter()
+    store.write("isabel", x, EB)
+    info["write_s"] = time.perf_counter() - t0
+    check(_store_payload(store, "isabel") == blob,
+          "store.write's payload differs from phase 2's container")
+    executor.reset_decode_counts()
+    t0 = time.perf_counter()
+    cold = store.read_roi("isabel", box)
+    info["roi_cold_s"] = time.perf_counter() - t0
+    check(executor.DECODE_COUNTS["tiles"] == len(ids) == 60,
+          f"the store's cold read decoded {executor.DECODE_COUNTS['tiles']} "
+          f"tiles, the box needs {len(ids)}")
+    nread = store._readers["isabel"][2].bytes_read
+    info["roi_bytes_read"], info["payload_bytes"] = nread, len(blob)
+    check(nread < ROI_BYTES_SHARE * len(blob),
+          f"the store's cold read fetched {nread} of {len(blob)} payload bytes")
+    executor.reset_decode_counts()
+    t0 = time.perf_counter()
+    cached = store.read_roi("isabel", box)
+    info["roi_cached_s"] = time.perf_counter() - t0
+    check(executor.DECODE_COUNTS["tiles"] == 0, "the cached read decoded tiles")
+    check(cold.tobytes() == crop and cached.tobytes() == crop,
+          "the store's region reads differ from the full decode's crop")
+
+    t0 = time.perf_counter()
+    store.write_chain("isabel-chain", frames[:3], eb_abs, mode="abs")
+    info["write_chain_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(store.append_frame("isabel-chain", frames[3]) == 3,
+          "append_frame gave another frame index")
+    info["append_frame_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = store.read_frame("isabel-chain", 3)
+    info["read_frame_s"] = time.perf_counter() - t0
+
+    # the committed fixture's calls (tests/data/make_fixtures.py)
+    fx = LopcStore.create(fx_root, plan=CompressionPlan(tile_shape=(8, 8, 8)))
+    fx.write("snap", make_scientific_field("front", (12, 11, 10), np.float32,
+                                           seed=24), EB)
+    sframes = make_field_sequence("diffuse", "waves", (10, 9, 8), 3,
+                                  np.float32, seed=25)
+    fx.write_chain("evolution", sframes[:2], 1e-1, mode="abs",
+                   keyframe_interval=2)
+    fx.append_frame("evolution", sframes[2])
+    fx_snap, fx_chain = fx.read("snap"), fx.read("evolution")
+    fx.close()
+    launches = dict(kernels.LAUNCHES)
+
+    whole = temporal.compress_chain(frames[:4], eb_abs, mode="abs")
+    c3 = bitstream.read_container_v3(whole)
+    payload = _store_payload(store, "isabel-chain")
+    entries = store.info("isabel-chain")["frames"]
+    check(len(entries) == 4 and all(
+        payload[e["off"]:e["off"] + e["len"]] == c3.frame_payload(t)
+        for t, e in enumerate(entries)),
+        "the stored chain's frames differ from compress_chain of the 4 frames")
+    check(got.tobytes() == temporal.decompress_frame(whole, 3).tobytes(),
+          "read_frame(3) differs from decompress_frame")
+    want = np.load(data / "expected.npz")
+    check(fx_snap.tobytes() == want["store_snap"].tobytes()
+          and fx_chain.tobytes() == want["store_chain"].tobytes(),
+          "the fixture's reads on the card differ from expected.npz")
+    for rel in ("manifest.json", "payload/snap.lopc", "payload/evolution.frames"):
+        check((fx.root / rel).read_bytes() == (data / "store" / rel).read_bytes(),
+              f"the card's store fixture differs from tests/data/store/{rel}")
+    log(f"2h store: write {info['write_s']:.2f} s (= phase 2's bytes); box "
+        f"cold {info['roi_cold_s'] * 1e3:.1f} ms ({len(ids)} tiles, {nread} of "
+        f"{len(blob)} payload bytes), cached {info['roi_cached_s'] * 1e3:.2f} ms; "
+        f"chain of 3 written {info['write_chain_s']:.2f} s, 4th appended "
+        f"{info['append_frame_s']:.2f} s (= compress_chain), read_frame(3) "
+        f"{info['read_frame_s']:.2f} s; fixture replayed byte for byte")
+    return info, launches
+
+
+def service_path(store, x, y, eng, kernels, card: str) -> tuple[dict, dict]:
+    """Phase 2h, the service: 8 client threads, released together, each
+    compress ``x[:100 - 10 i]``, decompress their container and read a
+    box of the stored field (clients 0-3 one tile off phase 2c's box, 4-7
+    the box itself).  Every container equals a direct compress, every
+    decode the direct decompress, every box the full decode's crop; the
+    mean batch occupancy exceeds 1 and no library loads.  Returns the
+    timings and the service's own launches: the direct calls it is held
+    to run outside the count."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from repro_torch.service import CompressionService, ServiceConfig
+
+    box = ROI_REGIONS["straddle"]
+    arrays = [x[: 100 - 10 * i] for i in range(SERVE_CLIENTS)]
+    boxes = [_shifted(box, BOX_SHIFTS[i]) if i < len(BOX_SHIFTS) else box
+             for i in range(SERVE_CLIENTS)]
+    raw_mb = sum(a.nbytes for a in arrays) / 1e6
+
+    def direct_pass():
+        blobs, secs = [], []
+        for a in arrays:
+            t0 = time.perf_counter()
+            blobs.append(eng.compress(a, EB))
+            secs.append(time.perf_counter() - t0)
+        return blobs, secs
+
+    # the first pass meets each slab's tile grid for the first time; the
+    # one timed against the service runs after it, warm like the service
+    direct, cold_s = direct_pass()
+    store.cache.clear()
+    start = threading.Barrier(SERVE_CLIENTS + 1)
+    t_start = [0.0]
+
+    def client(i):
+        start.wait()
+        blob = svc.submit_compress(arrays[i], EB).result()
+        t_c = time.perf_counter() - t_start[0]
+        return blob, t_c, svc.submit_decompress(blob).result(), \
+            svc.submit_store_roi(store, "isabel", boxes[i]).result()
+
+    traces0 = eng.device.trace_count()
+    kernels.reset_launches()
+    with CompressionService(ServiceConfig(max_delay_ms=20.0)) as svc:
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            futs = [pool.submit(client, i) for i in range(SERVE_CLIENTS)]
+            t_start[0] = time.perf_counter()
+            start.wait()
+            results = [f.result() for f in futs]
+        wall = time.perf_counter() - t_start[0]
+        m = svc.metrics()
+    launches = dict(kernels.LAUNCHES)
+    again, direct_s = direct_pass()
+    check(again == direct, "direct compresses not deterministic on the card")
+    for i, (blob, _, yi, roi) in enumerate(results):
+        check(blob == direct[i], f"service client {i}: container differs from "
+              "a direct engine.compress")
+        check(yi.tobytes() == eng.decompress(direct[i]).tobytes(),
+              f"service client {i}: decode differs from engine.decompress")
+        check(within_bound(arrays[i], yi, EB), f"service client {i}: bound")
+        check(roi.tobytes() == np.ascontiguousarray(y[boxes[i]]).tobytes(),
+              f"service client {i}: store box differs from the full decode's crop")
+    check(m.failed == 0 and m.completed == 3 * SERVE_CLIENTS,
+          f"service: {m.completed} completed, {m.failed} failed")
+    check(m.mean_batch_occupancy > 1,
+          f"service batches held {m.mean_batch_occupancy:.2f} requests on average")
+    check(m.traces_added == 0 and eng.device.trace_count() == traces0,
+          "service traffic loaded a kernel library")
+    t_compress = max(r[1] for r in results)
+    info = {"clients": SERVE_CLIENTS, "raw_MB": raw_mb,
+            "service_compress_MB_s": raw_mb / t_compress,
+            "direct_compress_MB_s": raw_mb / sum(direct_s),
+            "direct_compress_s": direct_s, "direct_first_pass_s": cold_s,
+            "wall_s": wall,
+            "p50_ms": m.p50_ms, "p99_ms": m.p99_ms, "batches": m.batches,
+            "mean_batch_occupancy": m.mean_batch_occupancy,
+            "max_batch_occupancy": m.max_batch_occupancy,
+            "device_groups": m.device_groups,
+            "mean_device_group_occupancy": m.mean_device_group_occupancy,
+            "cache_hits": m.cache_hits, "cache_misses": m.cache_misses,
+            "traces_added": m.traces_added}
+    log(f"2h service: {SERVE_CLIENTS} clients, {raw_mb:.0f} MB; compress "
+        f"{info['service_compress_MB_s']:.1f} MB/s aggregate vs "
+        f"{info['direct_compress_MB_s']:.1f} MB/s direct (one after another, "
+        f"warm; first pass {raw_mb / sum(cold_s):.1f}); "
+        f"latency p50 {m.p50_ms:.1f} ms, p99 {m.p99_ms:.1f} ms; {m.batches} "
+        f"batches, occupancy mean {m.mean_batch_occupancy:.2f} / max "
+        f"{m.max_batch_occupancy}; tile cache {m.cache_hits} hits / "
+        f"{m.cache_misses} misses; {wall:.2f} s wall; card {card}")
+    return info, launches
+
+
+def trace_path(store, x, blob, y, out_dir: Path) -> dict:
+    """Phase 2h, the trace: one traced service compress, decompress and
+    store box read of the full field, written to ``out_dir`` and
+    validated in single mode; each ``exec.*`` stage's summed ms beside
+    ``engine.compress_group``'s; then ``python -m
+    repro_torch.launch.serve --store --trace-out`` as a subprocess, its
+    trace validated too."""
+    import os
+
+    from repro_torch import obs
+    from repro_torch.service import CompressionService, ServiceConfig
+
+    schema = _single_mode_schema()
+    store.cache.clear()
+    obs.tracer().drain()
+    obs.enable()
+    try:
+        with CompressionService(ServiceConfig()) as svc:
+            t0 = time.perf_counter()
+            b = svc.compress(x, EB)
+            traced_s = time.perf_counter() - t0
+            yt = svc.decompress(b)
+            svc.store_roi(store, "isabel", ROI_REGIONS["straddle"])
+        spans = obs.tracer().drain()
+    finally:
+        obs.disable()
+    check(b == blob and yt.tobytes() == y.tobytes(),
+          "tracing changed the service's bytes or values")
+    doc = obs.write_trace(str(out_dir / "chip_smoke_trace.json"), spans,
+                          meta={"mode": "chip_smoke phase 2h"})
+    errors = obs.validate_trace(doc, schema)
+    check(not errors, f"the service trace fails the schema: {errors[:3]}")
+    by_id = {s.span_id: s for s in spans}
+
+    def group_of(s):
+        while s is not None and not s.name.startswith("engine."):
+            s = by_id.get(s.parent_id)
+        return s
+
+    stage_ms: dict[str, float] = {}
+    for s in spans:
+        g = group_of(s) if s.name.startswith("exec.") else None
+        if g is not None and g.name == "engine.compress_group":
+            stage_ms[s.name] = stage_ms.get(s.name, 0.0) + s.dur_us / 1e3
+    group_ms = sum(s.dur_us for s in spans
+                   if s.name == "engine.compress_group") / 1e3
+    check(group_ms > 0 and stage_ms, "the traced compress has no stage spans")
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--store",
+           "--clients", "4", "--requests-per-client", "2",
+           "--trace-out", str(out_dir / "serve_store_trace.json")]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    serve_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"serve --store failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    serve_doc = json.loads((out_dir / "serve_store_trace.json").read_text())
+    errors = obs.validate_trace(serve_doc, schema)
+    check(not errors, f"serve --store's trace fails the schema: {errors[:3]}")
+    info = {"traced_compress_s": traced_s, "compress_group_ms": group_ms,
+            "exec_stage_ms": stage_ms, "n_spans": len(spans),
+            "serve_store_s": serve_s, "serve_store_spans": len(serve_doc["spans"]),
+            "serve_store_stdout": proc.stdout.strip().splitlines()}
+    log("2h trace: " + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(stage_ms.items()))
+        + f" of engine.compress_group {group_ms:.1f} ms ("
+        f"{sum(stage_ms.values()) / group_ms:.2f}); traced compress "
+        f"{traced_s:.2f} s; serve --store {serve_s:.1f} s, "
+        f"{info['serve_store_spans']} spans, valid")
+    for line in info["serve_store_stdout"]:
+        log(f"  serve --store | {line}")
+    return info
+
+
+def serving_phase(x, blob, y, frames, eng, executor, kernels, temporal,
+                  launches: dict, card: str) -> dict:
+    """Phase 2h: the store, the service and the trace, each path's
+    launches counted alone (zeroed just before its own calls, read just
+    after them; the references it is held to run outside)."""
+    import shutil
+
+    from repro_torch.store import LopcStore
+
+    root = ROOT / "build" / "chip_smoke_store"
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    store = LopcStore.create(root / "isabel")
+    try:
+        info = {}
+        info["store"], launches["store"] = store_path(
+            store, x, blob, y, frames, eng, executor, kernels, temporal)
+        info["service"], launches["service"] = service_path(
+            store, x, y, eng, kernels, card)
+        info["trace"] = trace_path(store, x, blob, y, out_dir)
+    finally:
+        store.close()
+        shutil.rmtree(root, ignore_errors=True)
+    for path, need in (("store", ("solve_tiles_blockwise", "encode_ints_fused",
+                                  "decode_tiles_fused")),
+                       ("service", ("solve_tiles_blockwise", "encode_ints_fused",
+                                    "decode_tiles_fused"))):
+        for k in need:
+            check(launches[path].get(k, 0) > 0, f"{k} never launched on the {path} path")
+    return info
 
 
 # (tile-straddling box, box inside one (16, 16, 64) tile, one-cell slab)
@@ -1372,13 +1743,17 @@ def profile(name, shape, dtype, eng, make_field, **kw) -> dict:
     device time by kernel and memcpy (torch.profiler, CUPTI), the
     device's idle share of the wall time, and the host functions of the
     port by cumulative time (cProfile, a separate run: it slows Python
-    code, so read its shares, not its seconds)."""
+    code, so read its shares, not its seconds; ISABEL's fields only, as
+    the run's time limit leaves no room for Miranda's, whose cells other
+    than the uniform one take no profile at all)."""
     import numpy as np
 
     x = make_field(name, shape, np.dtype(dtype), seed=0)
     blob = eng.compress(x, EB, **kw)
     return profile_calls({"compress": lambda: eng.compress(x, EB, **kw),
-                          "decompress": lambda: eng.decompress(blob)})
+                          "decompress": lambda: eng.decompress(blob)},
+                         host=("compress", "decompress")
+                         if name == ISABEL[0] else ())
 
 
 def profile_calls(calls: dict, host=("compress", "decompress")) -> dict:
@@ -2234,14 +2609,17 @@ def main() -> None:
         blob, y, info = chain_path(label, frames, interval, kw, temporal, eng,
                                    executor, kernels, topology, tda, launches,
                                    rec)
-        chain_timing(frames, interval, kw, blob, y, temporal, info)
-        # the host's shares of the compress only: the decompress's are
-        # the snapshot decode's section parsing (phase 2's profiles)
-        chain_profiles[label] = profile_calls({
-            "compress": lambda: temporal.compress_chain(
-                frames, EB, keyframe_interval=interval, **kw),
-            "decompress": lambda: temporal.decompress_chain(blob)},
-            host=("compress",))
+        # the run's time limit leaves room for one timed pass a chain and
+        # a device profile of the isabel chains only (miranda's is 1.2 GB,
+        # ~15 s a pass); the host's shares of the first chain's compress
+        # only: the decompress's are the snapshot decode's section parsing
+        chain_timing(frames, interval, kw, blob, y, temporal, info, reps=1)
+        if name == ISABEL[0]:
+            chain_profiles[label] = profile_calls({
+                "compress": lambda: temporal.compress_chain(
+                    frames, EB, keyframe_interval=interval, **kw),
+                "decompress": lambda: temporal.decompress_chain(blob)},
+                host=("compress",) if label == CHAIN_CELLS[0][0] else ())
         if label == CHAIN_CELLS[0][0]:
             info["decode_stages"] = chain_decode_stages(blob, temporal, card)
             chain_cut_agreement(frames, temporal, info)
@@ -2250,11 +2628,16 @@ def main() -> None:
         log(f"full size {label}: ratio {info['ratio']:.3f} "
             f"({info['ratio_vs_snapshots']:.4f}x the snapshots'), compress "
             f"{info['compress_MB_s']:.1f} MB/s, decompress "
-            f"{info['decompress_MB_s']:.1f} MB/s (warm medians of 3, raw MB "
+            f"{info['decompress_MB_s']:.1f} MB/s (one warm pass, raw MB "
             f"of all {info['frames']} frames); card {card}")
         del frames, blob, y
-    del isabel_frames
     phase_done("2g chains")
+
+    # ---- 2h. the serving stack at full size: store, service, trace
+    serving = serving_phase(*runs[0][0], isabel_frames, eng, executor,
+                            kernels, temporal, launches, card)
+    del isabel_frames
+    phase_done("2h serving")
     log("launches by path: " + json.dumps(launches))
     log(json.dumps({"full_size": results, "launches_by_path": launches}))
     profiles = {f"{cell[0]}{kind}": profile(*cell, api, field, **kw)
@@ -2262,7 +2645,7 @@ def main() -> None:
                                       (" plain", eng, {"preserve_order": False}),
                                       (" v1", core, {"container_version": 1}),
                                       (" adaptive", eng, {"adaptive_eb": "tda"}))
-                for cell in (ISABEL, MIRANDA)}
+                for cell in ((ISABEL, MIRANDA) if kind == "" else (ISABEL,))}
     profiles.update(chain_profiles)
     for cell, prof in profiles.items():
         for what, p in prof.items():
@@ -2457,6 +2840,7 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "full_size": results,
          "ff32": ff32, "chains": chains, "profiles": profiles, "roi": roi,
+         "serving": serving,
          "phase_s": phase_s,
          "launches_by_path": launches, "kernels": rows,
          "seconds": time.perf_counter() - T0}, indent=1))

@@ -23,11 +23,25 @@ from ..core.floatbits import float_to_ordered
 from ..core.quantize import decode_base, quantize_broadcast
 # the chain's dequantize stage, shared with kernel 3's plain version
 from ..core.quantize import dequantize_tiles  # noqa: F401
+from ..kernels import _lib
 from ..kernels.fused_decode import decode_tiles_fused, expand_ints
 from ..kernels.fused_encode import encode_ints_fused, encode_values_fused
 from ..kernels.subbin_sweep import solve_tiles_blockwise
 
 SOLVERS = ("auto", "jacobi", "frontier", "blockwise")
+
+
+def trace_count() -> int:
+    """The port's counterpart of the reference's jit-trace probe.
+
+    The reference counts jit traces, its per-shape first-use cost.  The
+    port compiles nothing per shape: its one first-use cost is building
+    and loading a kernel library (an ``nvcc`` build on a cold checkout,
+    then a ``ctypes`` load), so this counts those misses of
+    ``kernels._lib.library``.  Steady-state traffic adds zero; on the CPU,
+    where no kernel runs, it stays 0.
+    """
+    return _lib.library_loads()
 
 
 def _interior(x: torch.Tensor) -> torch.Tensor:

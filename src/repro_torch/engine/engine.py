@@ -14,6 +14,11 @@ CUDA device it raises unless the caller asks for ``device="cpu"``, where
 the kernels' plain versions run.  Arguments outside this port's current
 slice raise ``NotImplementedError`` naming the ROADMAP.md row that
 brings them.
+
+Each device group runs under an ``engine.compress_group`` or
+``engine.decode_group`` span (``repro_torch.obs``), the parent of the
+executor's stage spans; ``group_cb`` receives one summary dict per group
+(the service's occupancy and bucket metrics).
 """
 from __future__ import annotations
 
@@ -22,9 +27,11 @@ import torch
 
 from ..core import bitstream
 from ..core.lopc import CompressStats
+from ..obs import span
 from ..core.nonfinite import decode_nonfinite, encode_nonfinite
 from ..core.quantize import abs_bound_from_mode, bin_dtype_for, check_bin_range, effective_eps
 from ..tda.adaptive import ADAPTIVE_EB_MODES, ladder_indices
+from . import buckets
 from . import device as _device
 from .executor import DECODE_PATHS, default_executor
 from .plan import (
@@ -200,6 +207,10 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
     plain f32 fields, the fused value encode; every path gives the same
     bytes (see ``executor``).  ``adaptive_eb="tda"`` scores every tile
     on the device and writes a per-tile eb ladder (``tda.adaptive``).
+    ``group_cb``, when given, is called once per device group with a
+    summary dict (``kind``/``dtype``/``tile``/``n_requests``/``n_tiles``
+    and ``tile_batches``, the (real, capacity) device batches the group
+    runs as): the hook the service reports occupancy through.
 
     Returns a list of blobs, or (blobs, stats) when ``return_stats``.
     """
@@ -213,8 +224,6 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
                          "ladder exists to protect topology)")
     if put is not None:
         _not_in_slice("put", 13, "distributed")
-    if group_cb is not None:
-        _not_in_slice("group_cb", 12, "serving stack")
     dev = resolve_device(device)
     plan = plan or DEFAULT_PLAN
     fields = list(fields)
@@ -235,9 +244,20 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
 
     blobs: list[bytes | None] = [None] * len(reqs)
     stats: list[CompressStats | None] = [None] * len(reqs)
-    for (dtype, _tile, _store, _adaptive), members in groups.items():
-        _compress_group([reqs[i] for i in members], dtype, ex,
-                        preserve_order, [blobs, stats], members, return_stats)
+    for (dtype, tile, _store, _adaptive), members in groups.items():
+        sizes = [reqs[i].layout.n_tiles for i in members]
+        if group_cb is not None:
+            group_cb({
+                "kind": "compress", "dtype": str(dtype), "tile": tile,
+                "n_requests": len(members),
+                "n_tiles": sum(sizes),
+                "tile_batches": _compress_batches(sizes, plan),
+            })
+        with span("engine.compress_group", dtype=str(dtype), tile=list(tile),
+                  n_requests=len(members), n_tiles=sum(sizes)):
+            _compress_group([reqs[i] for i in members], dtype, ex,
+                            preserve_order, [blobs, stats], members,
+                            return_stats)
     if return_stats:
         return blobs, stats
     return blobs
@@ -337,11 +357,32 @@ def _as_container(reader) -> bitstream.ContainerV2:
     return reader
 
 
-def _decode_runs(runs, plan, dev):
+def _compress_batches(sizes, plan):
+    """Device batches a compress group will run as -> [(real, capacity)].
+
+    The same ``buckets`` planning the executor uses, so ``group_cb``
+    consumers (the service's pad-waste metrics) see exactly the batches
+    that execute."""
+    floor = max(buckets.CAPACITY_FLOOR, plan.batch_tiles)
+    out = []
+    for lo, hi in buckets.plan_request_chunks(tuple(sizes), floor):
+        n = int(sum(sizes[lo:hi]))
+        out.append((n, buckets.bucket_capacity(n, floor)))
+    return out
+
+
+def _decode_batches(n_tiles, plan):
+    """Decode-side twin of :func:`_compress_batches`."""
+    floor = max(buckets.CAPACITY_FLOOR, plan.batch_tiles)
+    return [(n, buckets.bucket_capacity(n, floor))
+            for n in buckets.plan_tile_chunks(n_tiles, floor)]
+
+
+def _decode_runs(runs, plan, dev, group_cb=None):
     """Decode ``(container, layout, tile_ids)`` runs; tiles of every run
     with one (dtype, tile shape, order, section words) signature share
     device batches.  Returns one ``(len(tile_ids), *tile)`` array per
-    run."""
+    run.  ``group_cb`` mirrors :func:`compress_many`'s hook."""
     groups: dict[tuple, list[int]] = {}
     for i, (c, layout, tile_ids) in enumerate(runs):
         if not tile_ids:
@@ -353,6 +394,14 @@ def _decode_runs(runs, plan, dev):
             for c, layout, _ in runs]
     ex = default_executor(plan, dev)
     for (dtype, tile, order, words), members in groups.items():
+        if group_cb is not None:
+            n_tiles = sum(len(runs[i][2]) for i in members)
+            group_cb({
+                "kind": "decompress", "dtype": str(dtype), "tile": tile,
+                "n_requests": len(members),
+                "n_tiles": n_tiles,
+                "tile_batches": _decode_batches(n_tiles, plan),
+            })
         items, spans = [], []
         for i in members:
             c, layout, tile_ids = runs[i]
@@ -363,7 +412,9 @@ def _decode_runs(runs, plan, dev):
             items.extend((c, t, eps_eff * 2.0 ** -int(ladder[t]))
                          for t in tile_ids)
             spans.append((i, start, len(items)))
-        values = ex.decode_items(items, tile, dtype, order, words)
+        with span("engine.decode_group", dtype=str(dtype), tile=list(tile),
+                  n_requests=len(members), n_tiles=len(items)):
+            values = ex.decode_items(items, tile, dtype, order, words)
         for i, lo, hi in spans:
             outs[i] = values[lo:hi]
     return outs
@@ -396,17 +447,16 @@ def decode_tiles_many(runs, plan: CompressionPlan | None = None,
     """Batched :func:`decode_tiles_for_region`: ``runs`` is a list of
     ``(reader, tile_ids)`` pairs, and tiles of all runs sharing one
     (dtype, tile, order, words) signature share device batches.
-    ``decode_path`` as in :func:`decode_tiles_for_region`.
+    ``decode_path`` as in :func:`decode_tiles_for_region`; ``group_cb``
+    as in :func:`compress_many` (``kind="decompress"``).
     """
     _check_decode_path(decode_path)
-    if group_cb is not None:
-        _not_in_slice("group_cb", 12, "serving stack")
     dev = resolve_device(device)
     parsed = []
     for reader, tile_ids in runs:
         c = _as_container(reader)
         parsed.append((c, container_layout(c), list(tile_ids)))
-    return _decode_runs(parsed, plan or DEFAULT_PLAN, dev)
+    return _decode_runs(parsed, plan or DEFAULT_PLAN, dev, group_cb)
 
 
 def assemble_interiors(values: np.ndarray, layout: TileLayout,
@@ -438,10 +488,9 @@ def decompress_many(blobs, plan: CompressionPlan | None = None,
                     group_cb=None, decode_path: str = "auto", device="cuda"):
     """Batched decode: tiles of all containers with one (tile shape,
     dtype, order, words) signature share device batches.
-    ``decode_path`` as in :func:`decode_tiles_for_region`."""
+    ``decode_path`` as in :func:`decode_tiles_for_region`; ``group_cb``
+    as in :func:`compress_many` (``kind="decompress"``)."""
     _check_decode_path(decode_path)
-    if group_cb is not None:
-        _not_in_slice("group_cb", 12, "serving stack")
     dev = resolve_device(device)
     plan = plan or DEFAULT_PLAN
     parsed = []
@@ -449,7 +498,7 @@ def decompress_many(blobs, plan: CompressionPlan | None = None,
         c = bitstream.read_container_v2(b)
         layout = container_layout(c)
         parsed.append((c, layout, list(range(layout.n_tiles))))
-    values = _decode_runs(parsed, plan, dev)
+    values = _decode_runs(parsed, plan, dev, group_cb)
     return [_assemble_field(v, c, layout)
             for v, (c, layout, _) in zip(values, parsed)]
 

@@ -22,6 +22,22 @@ Decode runs the other way: tile sections are deserialized into chunk
 rows on the host, uploaded once per decode batch, decoded by one kernel
 and downloaded as values.
 
+Stage spans (``repro_torch.obs``), under the reference's names: a
+compress group opens ``exec.upload`` (tiles, eps and the halo tables of
+one device batch) and ``exec.solve`` (the frontend, the bins encode and
+the halo-round solve of that batch; on the fused plain f32 path the
+value encode) per batch, then ``exec.encode`` (the subbin encode) and
+``exec.download``, inside which the compacted form opens
+``exec.compaction``.  The reference's compaction span holds the word-level
+compaction and its totals fetch; the port's wraps its counterpart, the
+word- and byte-level compaction (``device.compact_streams``) and the one
+totals fetch.  A decode batch opens ``exec.stream_prep`` (the host's
+section parse), ``exec.decode`` (the upload and the kernel) and
+``exec.download``.  While tracing is enabled each stage fences its
+outputs (``obs.fence``), so a span measures device time; disabled, the
+spans are one shared no-op and no stage synchronizes.  A frame chain's
+step opens none, as in the reference.
+
 ``TRANSFER_COUNTS`` counts host<->device crossings by category
 (``h2d_tiles``, ``h2d_aux``, ``d2h_aux``, ``d2h_round`` — the one
 boolean read back per halo round —, ``d2h_sections``, ``h2d_sections``,
@@ -30,11 +46,22 @@ boolean read back per halo round —, ``d2h_sections``, ``h2d_sections``,
 compacted runs saved against word-level compaction alone (the
 reference's form); ``DECODE_COUNTS``
 counts the ``tiles`` and the device ``batches`` every decode runs (the
-probe that shows a region read touches only its tiles).
+probe that shows a region read touches only its tiles).  Both are
+``obs.CounterView``s over the process registry's families
+``lopc_transfers_total`` and ``lopc_decodes_total``: writers use the
+locked ``.add``, so concurrent services lose no update, and readers keep
+the ``Counter`` idioms (``[]``, ``dict()``, ``.clear()``).
+
+One ``Executor`` per (plan, device, encode path) is cached by
+``default_executor`` and shared by every service worker that runs that
+configuration.  Sharing is safe: an executor holds only its immutable
+configuration, every call builds its own tensors, the counters are
+locked, and ``halo.group_adjacency``'s cache is an ``lru_cache``
+(thread-safe).  Two workers' calls may interleave on the device's
+current stream; each call's results depend only on its own tensors.
 """
 from __future__ import annotations
 
-from collections import Counter
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -45,11 +72,15 @@ from ..codecs import rze
 from ..codecs.transforms import NP_UNSIGNED
 from ..core import bitstream
 from ..core.quantize import bin_dtype_for
+from ..obs import REGISTRY, CounterView, fence, span
+from ..obs.trace import NOOP_SPAN
 from . import buckets, device, halo
 from .plan import CompressionPlan, TileLayout
 
-TRANSFER_COUNTS: Counter = Counter()
-DECODE_COUNTS: Counter = Counter()
+TRANSFER_COUNTS: CounterView = CounterView(REGISTRY.counter(
+    "lopc_transfers_total", "host-device crossings by category"))
+DECODE_COUNTS: CounterView = CounterView(REGISTRY.counter(
+    "lopc_decodes_total", "tile sections decoded and their device batches"))
 
 _CHUNK_WORDS = {2: 8192, 4: 4096, 8: 2048}  # word bytes -> words / 16 KiB
 
@@ -89,6 +120,11 @@ def use_fused_encode(encode_path: str, padded_elems: int,
     if encode_path == "fused":
         return True
     return on_cuda and padded_elems >= FUSED_ENCODE_AUTO_MIN_ELEMS
+
+
+def _no_span(name: str, **tags):
+    """The stage span of a caller that opens none (a chain step)."""
+    return NOOP_SPAN
 
 
 def reset_transfer_counts() -> None:
@@ -177,6 +213,10 @@ class Executor:
         zigzag-encoded, and the quantize stays a stage of its own (no
         fused value encode).
         """
+        # a chain step (the only caller that keeps its bins) opens no
+        # stage spans, as in the reference
+        spans = not keep_bins
+        stage = span if spans else _no_span
         layout0 = layouts[0]
         n_total = x_tiles.shape[0]
         tdt = _TORCH_DTYPE[np.dtype(dtype)]
@@ -186,12 +226,12 @@ class Executor:
         bins_cpt, bins_chunk = chunks_per_tile(layout0, bins_store)
         sizes = tuple(lay.n_tiles for lay in layouts)
         offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
-        spans = buckets.plan_request_chunks(sizes, floor)
+        batches = buckets.plan_request_chunks(sizes, floor)
         # one pick per group (its largest batch decides), so the whole
         # group's streams share one form through serialization
         max_capacity = max(
             resident_capacity(int(offsets[hi] - offsets[lo]), floor)
-            for lo, hi in spans)
+            for lo, hi in batches)
         fused = use_fused_encode(self.encode_path,
                                  max_capacity * layout0.tile_elems,
                                  self.device.type == "cuda")
@@ -199,7 +239,7 @@ class Executor:
                         and tdt == torch.float32)
         chunks = []
         resident = []
-        for lo, hi in spans:
+        for lo, hi in batches:
             r0, r1 = int(offsets[lo]), int(offsets[hi])
             n_chunk = r1 - r0
             capacity = resident_capacity(n_chunk, floor)
@@ -209,71 +249,41 @@ class Executor:
                 xc = np.concatenate([
                     xc, np.full((pad,) + xc.shape[1:], np.nan, xc.dtype)])
                 ec = np.concatenate([ec, np.ones(pad, np.float64)])
-            TRANSFER_COUNTS["h2d_tiles"] += 1
-            TRANSFER_COUNTS["h2d_aux"] += 1
-            TRANSFER_COUNTS["bytes_h2d"] += xc.nbytes + ec.nbytes
-            x_dev, eps_dev = self._put(xc), self._put(ec)
-            if values_fused:
-                chunks.append([n_chunk, capacity, device.resident_encode_fused(
-                    x_dev, eps_dev, tdt, bins_tdt, bins_chunk), None])
-                continue
-            if adaptive:
-                bins_enc, s_init, flags = device.resident_frontend_adaptive(
-                    x_dev, eps_dev, tdt)
-            else:
-                bins_enc, bins_m, vals_m = device.resident_quantize(
-                    x_dev, eps_dev, tdt, preserve_order)
-            del x_dev
-            stream, transform = bins_enc, "delta"
-            if prev_bins is not None:
-                prev = list(prev_bins[lo:hi])
-                if pad:
-                    prev.append(bins_enc.new_zeros((pad,) + layout0.tile))
-                stream = device.residual_tiles(bins_enc, torch.cat(prev))
-                transform = "zigzag"
-            # a narrower store wraps, as the reference's astype does
-            bins_s = device.encode_tiles(
-                stream.to(bins_tdt).reshape(capacity, -1), bins_chunk,
-                transform)
-            if keep_bins:
-                resident.extend(torch.split(bins_enc[:n_chunk], sizes[lo:hi]))
-            del bins_enc, stream
-            if not preserve_order:
-                chunks.append([n_chunk, capacity, bins_s, None])
-                continue
-            idx, mask = halo.group_index(layouts[lo:hi], capacity)
-            adj = halo.group_adjacency(layouts[lo:hi])
-            TRANSFER_COUNTS["h2d_aux"] += 4
-            TRANSFER_COUNTS["bytes_h2d"] += (idx.nbytes + mask.nbytes
-                                             + adj[0].nbytes + adj[1].nbytes)
-            adj = tuple(self._put(a) for a in adj)
-            if adaptive:
-                s_final, local1, last_round, rounds = device.resident_solve(
-                    flags, self._put(idx), self._put(mask),
-                    max_rounds=n_chunk * layout0.tile_elems + 2,
-                    adjacency=adj, sub0=s_init, n_real=n_chunk)
-                # the stored subbin is the ordered distance climbed above
-                # the bin base (0 at invalid cells, whose state never
-                # moves); subtracting in the state's own width wraps as
-                # the reference's unsigned subtraction does: no widening
-                sub = s_final - s_init
-                del s_final, s_init
-            else:
-                flags = device.resident_flags(bins_m, vals_m, capacity)
-                del bins_m, vals_m
-                sub, local1, last_round, rounds = device.resident_solve(
-                    flags, self._put(idx), self._put(mask),
-                    max_rounds=n_chunk * layout0.tile_elems + 2,
-                    adjacency=adj, n_real=n_chunk)
-            TRANSFER_COUNTS["d2h_round"] += rounds
-            chunks.append([n_chunk, capacity, bins_s, sub, local1,
-                           last_round])
+            TRANSFER_COUNTS.add("h2d_tiles")
+            TRANSFER_COUNTS.add("h2d_aux")
+            TRANSFER_COUNTS.add("bytes_h2d", xc.nbytes + ec.nbytes)
+            with stage("exec.upload", tiles=n_chunk, capacity=capacity,
+                       nbytes=xc.nbytes):
+                x_dev, eps_dev = self._put(xc), self._put(ec)
+                tables = ()
+                if preserve_order:
+                    idx, mask = halo.group_index(layouts[lo:hi], capacity)
+                    adj = halo.group_adjacency(layouts[lo:hi])
+                    TRANSFER_COUNTS.add("h2d_aux", 4)
+                    TRANSFER_COUNTS.add("bytes_h2d", idx.nbytes + mask.nbytes
+                                        + adj[0].nbytes + adj[1].nbytes)
+                    tables = (self._put(idx), self._put(mask),
+                              tuple(self._put(a) for a in adj))
+                if spans:
+                    fence(x_dev, eps_dev, tables)
+            with stage("exec.solve", tiles=n_chunk, capacity=capacity,
+                       solver="blockwise", adaptive=adaptive):
+                chunk = self._solve_chunk(
+                    x_dev, eps_dev, tables, n_chunk, capacity, tdt, bins_tdt,
+                    bins_chunk, preserve_order, adaptive, values_fused,
+                    None if prev_bins is None else prev_bins[lo:hi],
+                    resident if keep_bins else None, sizes[lo:hi],
+                    layout0)
+                del x_dev, eps_dev, tables
+                if spans:
+                    fence(chunk[2:])
+            chunks.append(chunk)
 
         subs_cpt = 0
         if preserve_order:
             # the width is picked from the *group* maximum so chunking
             # never changes the subbin stream
-            TRANSFER_COUNTS["d2h_aux"] += len(chunks)
+            TRANSFER_COUNTS.add("d2h_aux", len(chunks))
             sub_top = max(device.sub_max(c[3]) for c in chunks)
             if sub_top < 2**15:
                 sub_store = np.dtype(np.int16)
@@ -284,29 +294,35 @@ class Executor:
                 # exceed int32: kernel 2's w=64 instantiation encodes them
                 sub_store = np.dtype(np.int64)
             subs_cpt, subs_chunk = chunks_per_tile(layout0, sub_store)
-            for c in chunks:
-                c[3] = device.encode_tiles(
-                    c[3].to(_TORCH_DTYPE[sub_store]).reshape(c[1], -1),
-                    subs_chunk, "raw")
+            with stage("exec.encode", chunks=len(chunks), fused=fused,
+                       sub_word=sub_store.itemsize):
+                for c in chunks:
+                    c[3] = device.encode_tiles(
+                        c[3].to(_TORCH_DTYPE[sub_store]).reshape(c[1], -1),
+                        subs_chunk, "raw")
+                if spans:
+                    fence([c[3] for c in chunks])
 
         # only real-tile rows travel: pad tiles' rows never serialize
         ns = [c[0] for c in chunks]
         streams = [None if s is None else tuple(a[: c[0] * cpt] for a in s)
                    for c in chunks for s, cpt in zip(c[2:4], (bins_cpt, subs_cpt))]
         extras = [c[4:6] for c in chunks] if preserve_order else []
-        if fused:
-            host, extras = fetch_compacted_streams(streams, extras)
-        else:
-            TRANSFER_COUNTS["d2h_sections"] += 1
-            host = [None if s is None else [_download(a) for a in s]
-                    for s in streams]
-            extras = [[_download(a) for a in e] for e in extras]
-            TRANSFER_COUNTS["bytes_d2h"] += sum(
-                a.nbytes for group in (*host, *extras) if group is not None
-                for a in group)
-            # the rows' nonzero words, row-major: the compacted form
-            host = [None if h is None else (h[0], h[1][h[1] != 0], h[2])
-                    for h in host]
+        with stage("exec.download", fused=fused, tiles=n_total) as dl_sp:
+            if fused:
+                host, extras = fetch_compacted_streams(streams, extras, stage)
+            else:
+                TRANSFER_COUNTS.add("d2h_sections")
+                host = [None if s is None else [_download(a) for a in s]
+                        for s in streams]
+                extras = [[_download(a) for a in e] for e in extras]
+                nbytes = sum(a.nbytes for group in (*host, *extras)
+                             if group is not None for a in group)
+                TRANSFER_COUNTS.add("bytes_d2h", nbytes)
+                dl_sp.set_tag("nbytes", nbytes)
+                # the rows' nonzero words, row-major: the compacted form
+                host = [None if h is None else (h[0], h[1][h[1] != 0], h[2])
+                        for h in host]
         bins_s = _cat_streams(host[0::2])
         subs_s = _cat_streams(host[1::2]) if preserve_order else None
         if preserve_order:
@@ -316,6 +332,61 @@ class Executor:
             local1 = last_round = np.zeros(n_total, np.int32)
         return GroupStreams(bins_s, subs_s, local1, last_round, bins_cpt,
                             subs_cpt, resident if keep_bins else None)
+
+    def _solve_chunk(self, x_dev, eps_dev, tables, n_chunk: int,
+                     capacity: int, tdt, bins_tdt, bins_chunk: int,
+                     preserve_order: bool, adaptive: bool,
+                     values_fused: bool, prev, resident, sizes, layout0):
+        """One device batch's frontend, bins encode and halo-round solve
+        -> [n_chunk, capacity, bins stream, subbins | None(, local
+        sweeps, last round)].  ``prev`` holds a residual frame's previous
+        bins per request, ``resident`` (a list) collects each request's
+        bins when a chain keeps them on the device."""
+        if values_fused:
+            return [n_chunk, capacity, device.resident_encode_fused(
+                x_dev, eps_dev, tdt, bins_tdt, bins_chunk), None]
+        if adaptive:
+            bins_enc, s_init, flags = device.resident_frontend_adaptive(
+                x_dev, eps_dev, tdt)
+        else:
+            bins_enc, bins_m, vals_m = device.resident_quantize(
+                x_dev, eps_dev, tdt, preserve_order)
+        stream, transform = bins_enc, "delta"
+        if prev is not None:
+            prev = list(prev)
+            if capacity > n_chunk:
+                prev.append(bins_enc.new_zeros((capacity - n_chunk,)
+                                               + layout0.tile))
+            stream = device.residual_tiles(bins_enc, torch.cat(prev))
+            transform = "zigzag"
+        # a narrower store wraps, as the reference's astype does
+        bins_s = device.encode_tiles(
+            stream.to(bins_tdt).reshape(capacity, -1), bins_chunk, transform)
+        if resident is not None:
+            resident.extend(torch.split(bins_enc[:n_chunk], sizes))
+        del bins_enc, stream
+        if not preserve_order:
+            return [n_chunk, capacity, bins_s, None]
+        idx, mask, adj = tables
+        max_rounds = n_chunk * layout0.tile_elems + 2
+        if adaptive:
+            s_final, local1, last_round, rounds = device.resident_solve(
+                flags, idx, mask, max_rounds=max_rounds, adjacency=adj,
+                sub0=s_init, n_real=n_chunk)
+            # the stored subbin is the ordered distance climbed above the
+            # bin base (0 at invalid cells, whose state never moves);
+            # subtracting in the state's own width wraps as the
+            # reference's unsigned subtraction does: no widening
+            sub = s_final - s_init
+            del s_final, s_init
+        else:
+            flags = device.resident_flags(bins_m, vals_m, capacity)
+            del bins_m, vals_m
+            sub, local1, last_round, rounds = device.resident_solve(
+                flags, idx, mask, max_rounds=max_rounds, adjacency=adj,
+                n_real=n_chunk)
+        TRANSFER_COUNTS.add("d2h_round", rounds)
+        return [n_chunk, capacity, bins_s, sub, local1, last_round]
 
 # ------------------------------------------------------------- decode
 
@@ -338,7 +409,7 @@ class Executor:
         n = len(items)
         if not n:
             return np.zeros((0,) + tuple(tile), dtype)
-        DECODE_COUNTS["tiles"] += n
+        DECODE_COUNTS.add("tiles", n)
         floor = max(CAPACITY_FLOOR, self.plan.batch_tiles)
         parts = []
         pos = 0
@@ -352,11 +423,11 @@ class Executor:
         return out.reshape((n,) + tuple(tile))
 
     def stage_rows(self, items, tile_elems: int, order: bool, words,
-                   batch: int):
+                   batch: int) -> list[np.ndarray]:
         """Deserialize a decode batch's tile sections into the kernel's
-        operands, on the device: (bitmap, packed[, sub_bitmap,
-        sub_packed]) word rows in signed twins and the (batch,) f64 eps;
-        the subbin rows only for an order-preserving batch."""
+        host operands: (bitmap, packed[, sub_bitmap, sub_packed]) word
+        rows in signed twins and the (batch,) f64 eps; the subbin rows
+        only for an order-preserving batch."""
         def alloc(word):
             chunk_len = _CHUNK_WORDS[word]
             cpt = -(-tile_elems // chunk_len)
@@ -375,21 +446,30 @@ class Executor:
         arrays = [a.view(f"<i{a.dtype.itemsize}")
                   for bitmap, packed, _ in streams for a in (bitmap, packed)]
         arrays.append(eps)
-        TRANSFER_COUNTS["h2d_sections"] += 1
-        TRANSFER_COUNTS["bytes_h2d"] += sum(a.nbytes for a in arrays)
-        return [self._put(a) for a in arrays]
+        return arrays
 
     def _decode_chunk(self, items, tile_elems: int, dtype, order: bool,
                       words, batch: int):
-        DECODE_COUNTS["batches"] += 1
-        operands = self.stage_rows(items, tile_elems, order, words, batch)
+        n = len(items)
+        DECODE_COUNTS.add("batches")
+        with span("exec.stream_prep", tiles=n, batch=batch):
+            arrays = self.stage_rows(items, tile_elems, order, words, batch)
+        up = sum(a.nbytes for a in arrays)
+        TRANSFER_COUNTS.add("h2d_sections")
+        TRANSFER_COUNTS.add("bytes_h2d", up)
         decode = (device.resident_decode_order if order
                   else device.resident_decode_plain)
-        out = decode(*operands, tile_elems, _TORCH_DTYPE[dtype])
-        TRANSFER_COUNTS["d2h_values"] += 1
-        out_h = out.cpu().numpy()
-        TRANSFER_COUNTS["bytes_d2h"] += out_h.nbytes
-        return out_h[: len(items)]
+        with span("exec.decode", tiles=n, batch=batch, fused=True,
+                  nbytes_h2d=up):
+            out = decode(*[self._put(a) for a in arrays], tile_elems,
+                         _TORCH_DTYPE[dtype])
+            fence(out)
+        TRANSFER_COUNTS.add("d2h_values")
+        with span("exec.download", tiles=n) as dl_sp:
+            out_h = out.cpu().numpy()
+            dl_sp.set_tag("nbytes", out_h.nbytes)
+        TRANSFER_COUNTS.add("bytes_d2h", out_h.nbytes)
+        return out_h[:n]
 
 
 def _fill_rows(bitmap: np.ndarray, packed: np.ndarray, section: bytes,
@@ -432,7 +512,7 @@ def _pick_run(run, n_words: int, n_nzbytes: int):
     byte_form = mask_len + _granule_len(n_nzbytes, nz.numel())
     if word_form <= byte_form:
         return [dense[: _granule_len(n_words, dense.numel())]], "words"
-    TRANSFER_COUNTS["bytes_d2h_byte_level_saved"] += word_form - byte_form
+    TRANSFER_COUNTS.add("bytes_d2h_byte_level_saved", word_form - byte_form)
     return [mask[:mask_len], nz[: _granule_len(n_nzbytes, nz.numel())]], "bytes"
 
 
@@ -445,7 +525,7 @@ def _restore_run(parts, form: str, n_words: int, n_nzbytes: int, udt):
     return raw.view(udt)
 
 
-def fetch_compacted_streams(streams, extras=()):
+def fetch_compacted_streams(streams, extras=(), stage=span):
     """Download device (bitmap, words, counts) streams at about payload
     size.
 
@@ -458,13 +538,17 @@ def fetch_compacted_streams(streams, extras=()):
     the host to the flat form the serializer takes: (bitmap rows,
     front-packed nonzero words, counts), the counts being the bitmap
     rows' popcounts.  ``None`` entries pass through (the plain path's
-    empty subbin slots).  Returns (restored, host extras).
+    empty subbin slots).  The compaction and the totals fetch run under
+    ``stage``'s ``exec.compaction`` span.  Returns (restored, host
+    extras).
     """
-    live = [(i, device.compact_streams(s[0], s[1]))
-            for i, s in enumerate(streams) if s is not None]
-    TRANSFER_COUNTS["d2h_aux"] += 1
-    totals = torch.stack([c[3] for _, c in live]).cpu().numpy()
-    TRANSFER_COUNTS["bytes_d2h"] += totals.nbytes
+    with stage("exec.compaction",
+               streams=sum(1 for s in streams if s is not None)):
+        live = [(i, device.compact_streams(s[0], s[1]))
+                for i, s in enumerate(streams) if s is not None]
+        TRANSFER_COUNTS.add("d2h_aux")
+        totals = torch.stack([c[3] for _, c in live]).cpu().numpy()
+        TRANSFER_COUNTS.add("bytes_d2h", totals.nbytes)
     fetch, forms = [], []
     for (_, (keepmap, kept, words, _)), tot in zip(live, totals):
         n_words, n_kept, nz_words, nz_kept = (int(t) for t in tot)
@@ -472,12 +556,12 @@ def fetch_compacted_streams(streams, extras=()):
         word_parts, word_form = _pick_run(words, n_words, nz_words)
         fetch.append(([keepmap], kept_parts, word_parts))
         forms.append((kept_form, word_form))
-    TRANSFER_COUNTS["d2h_sections"] += 1
+    TRANSFER_COUNTS.add("d2h_sections")
     fetch_h = [[[t.cpu().numpy() for t in part] for part in f] for f in fetch]
     extras_h = [[t.cpu().numpy() for t in e] for e in extras]
-    TRANSFER_COUNTS["bytes_d2h"] += sum(
+    TRANSFER_COUNTS.add("bytes_d2h", sum(
         a.nbytes for f in fetch_h for part in f for a in part) + sum(
-        a.nbytes for e in extras_h for a in e)
+        a.nbytes for e in extras_h for a in e))
     restored = [None] * len(streams)
     for (i, _), tot, (keepmap, kept, words), (kept_form, word_form) in zip(
             live, totals, fetch_h, forms):

@@ -10,9 +10,18 @@ one is reused.  ``defines`` builds a variant of a library beside it (the
 phase-clock build of ``phase_clocks.py``).
 
 ``LAUNCHES`` counts kernel launches by kernel name; a wrapper adds one
-exactly where it launches its kernel, never on the plain path.
-``TRANSFORM_LAUNCHES`` counts the same launches of the integer encode
-(kernel 2) by its word transform, as ``encode_ints_fused_<transform>``.
+(``LAUNCHES.add(name)``) exactly where it launches its kernel, never on
+the plain path.  ``TRANSFORM_LAUNCHES`` counts the same launches of the
+integer encode (kernel 2) by its word transform, as
+``encode_ints_fused_<transform>``.  Both are ``obs.CounterView``s with
+locked increments, so a service's worker thread and a client thread
+launching at once lose no count; their families live in a registry of
+their own (``LAUNCH_REGISTRY``), so the process registry's exposition
+holds the reference's families alone.  Readers keep the ``Counter``
+idioms (``[]``, ``dict()``, ``.values()``, ``.clear()``).
+
+``library_loads()`` counts the libraries built or loaded: the port's
+only first-use cost, read by ``engine.device.trace_count``.
 """
 from __future__ import annotations
 
@@ -23,10 +32,11 @@ import shutil
 import subprocess
 import threading
 import time
-from collections import Counter
 from pathlib import Path
 
 import torch
+
+from ..obs.registry import CounterView, MetricsRegistry
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,17 +47,27 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES: Counter = Counter()
-TRANSFORM_LAUNCHES: Counter = Counter()
+LAUNCH_REGISTRY = MetricsRegistry()
+LAUNCHES: CounterView = CounterView(LAUNCH_REGISTRY.counter(
+    "lopc_kernel_launches_total", "hand-written kernel launches by kernel"))
+TRANSFORM_LAUNCHES: CounterView = CounterView(LAUNCH_REGISTRY.counter(
+    "lopc_kernel_transform_launches_total",
+    "integer encode launches by word transform"))
 
 _LOCK = threading.Lock()
 _LIBS: dict[tuple[str, tuple], ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str, tuple], ctypes._CFuncPtr] = {}
+_LOADS = 0
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
     TRANSFORM_LAUNCHES.clear()
+
+
+def library_loads() -> int:
+    """Libraries built or loaded so far (misses of :func:`library`)."""
+    return _LOADS
 
 
 def _nvcc() -> str:
@@ -102,6 +122,7 @@ def build(names=SOURCES, defines: tuple = ()) -> float:
 
 def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    global _LOADS
     with _LOCK:
         lib = _LIBS.get((name, defines))
         if lib is None:
@@ -110,6 +131,7 @@ def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
             lib.lopc_errstr.restype = ctypes.c_char_p
             lib.lopc_errstr.argtypes = [ctypes.c_int]
             _LIBS[(name, defines)] = lib
+            _LOADS += 1
         return lib
 
 

@@ -23,7 +23,7 @@ def _launch(words: torch.Tensor, inverse: int, name: str) -> torch.Tensor:
     if words.shape[0]:
         _lib.call("bitshuffle", "lopc_bitshuffle", words, out, words.shape[0],
                   inverse)
-        _lib.LAUNCHES[name] += 1
+        _lib.LAUNCHES.add(name)
     return out
 
 

@@ -96,12 +96,12 @@ def decode_tiles_fused(bitmap, packed, sub_bitmap, sub_packed, eps,
         _lib.call("fused_decode", "lopc_decode_tiles_plain", bitmap, packed,
                   eps, out, batch, tile_elems, width(packed.dtype), cpts[0],
                   bits)
-        _lib.LAUNCHES["decode_tiles_fused_nosub"] += 1
+        _lib.LAUNCHES.add("decode_tiles_fused_nosub")
         return out
     _lib.call("fused_decode", "lopc_decode_tiles", bitmap, packed, sub_bitmap,
               sub_packed, eps, out, batch, tile_elems, width(packed.dtype),
               width(sub_packed.dtype), cpts[0], cpts[1], bits)
-    _lib.LAUNCHES["decode_tiles_fused"] += 1
+    _lib.LAUNCHES.add("decode_tiles_fused")
     return out
 
 
@@ -120,5 +120,5 @@ def dequantize_ff32(bins: torch.Tensor, subbins: torch.Tensor,
     out = torch.empty(bins.shape, dtype=torch.float32, device=bins.device)
     _lib.call("ff32", "lopc_dequantize_ff32", bins, subbins, out, bins.numel(),
               float(np.float32(eps32)))
-    _lib.LAUNCHES["dequantize_ff32"] += 1
+    _lib.LAUNCHES.add("dequantize_ff32")
     return out

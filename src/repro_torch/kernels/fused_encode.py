@@ -67,8 +67,8 @@ def encode_ints_fused(ints: torch.Tensor, chunk_len: int, transform: str):
     counts = torch.empty((rows,), dtype=torch.int32, device=dev)
     _lib.call("fused_encode", "lopc_encode_ints", ints, bitmap, words, counts,
               b, e, w, TRANSFORMS.index(transform))
-    _lib.LAUNCHES["encode_ints_fused"] += 1
-    _lib.TRANSFORM_LAUNCHES[f"encode_ints_fused_{transform}"] += 1
+    _lib.LAUNCHES.add("encode_ints_fused")
+    _lib.TRANSFORM_LAUNCHES.add(f"encode_ints_fused_{transform}")
     return bitmap, words, counts
 
 
@@ -112,5 +112,5 @@ def encode_values_fused(x_int: torch.Tensor, eps: torch.Tensor, chunk_len: int,
     counts = torch.empty((rows,), dtype=torch.int32, device=dev)
     _lib.call("fused_encode", "lopc_encode_values", x_int, eps, bitmap, words,
               counts, b, e, w)
-    _lib.LAUNCHES["encode_values_fused"] += 1
+    _lib.LAUNCHES.add("encode_values_fused")
     return bitmap, words, counts

@@ -27,5 +27,5 @@ def quantize_ff32(x: torch.Tensor, eps32) -> torch.Tensor:
     # a double holding the f32 value exactly: the C side's cast is exact
     _lib.call("ff32", "lopc_quantize_ff32", x, out, x.numel(),
               float(np.float32(eps32)))
-    _lib.LAUNCHES["quantize_ff32"] += 1
+    _lib.LAUNCHES.add("quantize_ff32")
     return out

@@ -29,5 +29,5 @@ def rze_bitmap_u32(words: torch.Tensor):
     counts = torch.empty((c,), dtype=torch.int32, device=words.device)
     if c:
         _lib.call("rze", "lopc_rze_bitmap", words, bitmap, counts, c)
-        _lib.LAUNCHES["rze_bitmap_u32"] += 1
+        _lib.LAUNCHES.add("rze_bitmap_u32")
     return bitmap, counts

@@ -93,8 +93,8 @@ def solve_tiles_blockwise(sub_h: torch.Tensor, flags: torch.Tensor):
     wide = sub_h.dtype == torch.int64
     _lib.call("subbin_sweep", "lopc_solve_tiles64" if wide else "lopc_solve_tiles",
               sub_h, flags, out, iters, b, *t, max_iters)
-    _lib.LAUNCHES["solve_tiles_blockwise_64" if wide
-                  else "solve_tiles_blockwise"] += 1
+    _lib.LAUNCHES.add("solve_tiles_blockwise_64" if wide
+                      else "solve_tiles_blockwise")
     return out, iters
 
 
@@ -215,7 +215,7 @@ def solve_blockwise(flags3: torch.Tensor):
                 _lib.call("subbin_sweep", "lopc_band_sweep", flags_p, sub,
                           snap, stamp, changed, j, launch, mode, since,
                           BAND_MAX_PASSES, xp, y, z)
-                _lib.LAUNCHES["solve_blockwise"] += 1
+                _lib.LAUNCHES.add("solve_blockwise")
                 launch += 1
             moved = changed.tolist()
             if 0 in moved:

@@ -224,7 +224,11 @@ def compress_chains(
     are scalars or per-chain sequences.  ``solver`` takes the
     reference's values (every schedule gives the same bytes; the tile
     solve runs kernel 1); ``encode_path`` picks the download form, as
-    in ``engine.compress``.
+    in ``engine.compress``.  ``group_cb``, when given, is called once per
+    time step and device group with the reference's summary dict
+    (``kind="chain_step"``, ``t``, ``frame_kind``, ``dtype``, ``tile``,
+    ``n_requests``, ``n_tiles``).  A chain step opens no stage spans, as
+    in the reference.
 
     Returns a list of blobs, or (blobs, stats) when ``return_stats``.
     """
@@ -238,8 +242,6 @@ def compress_chains(
                          "ladder exists to protect topology)")
     if put is not None:
         _not_in_slice("put", 13, "distributed")
-    if group_cb is not None:
-        _not_in_slice("group_cb", 12, "serving stack")
     dev = resolve_device(device)
     plan = plan or DEFAULT_PLAN
     chains = list(chains)
@@ -266,7 +268,16 @@ def compress_chains(
                 groups.setdefault(
                     (r.dtype, r.layout.tile, r.kind(t), r.bins_store(t),
                      r.adaptive), []).append(r)
-        for (dtype, _tile, kind, store, _adaptive), members in groups.items():
+        for (dtype, tile, kind, store, _adaptive), members in groups.items():
+            if group_cb is not None:
+                group_cb({
+                    "kind": "chain_step", "t": t,
+                    "frame_kind": ("key" if kind == bitstream.FRAME_KEY
+                                   else "residual"),
+                    "dtype": str(dtype), "tile": tile,
+                    "n_requests": len(members),
+                    "n_tiles": sum(r.layout.n_tiles for r in members),
+                })
             _compress_chain_step(members, t, kind, store, dtype,
                                  preserve_order, ex)
 
@@ -502,8 +513,8 @@ class ChainDecoder:
         packed = np.zeros((self.capacity * cpt, chunk_len), udt)
         for j, section in enumerate(sections):
             _fill_rows(bitmap, packed, section, j * cpt, cpt)
-        TRANSFER_COUNTS["h2d_sections"] += 1
-        TRANSFER_COUNTS["bytes_h2d"] += bitmap.nbytes + packed.nbytes
+        TRANSFER_COUNTS.add("h2d_sections")
+        TRANSFER_COUNTS.add("bytes_h2d", bitmap.nbytes + packed.nbytes)
         return tuple(torch.from_numpy(a.view(f"<i{word}")).to(self.dev)
                      for a in (bitmap, packed))
 
@@ -547,14 +558,14 @@ class ChainDecoder:
                 sbitmap.dtype)
         else:
             subs = torch.zeros_like(self.bins)
-        TRANSFER_COUNTS["h2d_aux"] += 1
-        TRANSFER_COUNTS["bytes_h2d"] += eps.nbytes
+        TRANSFER_COUNTS.add("h2d_aux")
+        TRANSFER_COUNTS.add("bytes_h2d", eps.nbytes)
         out = _device.dequantize_tiles(
             self.bins, subs, torch.from_numpy(eps).to(self.dev),
             _TORCH_DTYPE[self.dtype])
-        TRANSFER_COUNTS["d2h_values"] += 1
+        TRANSFER_COUNTS.add("d2h_values")
         out_h = out[:n].cpu().numpy()  # the real tiles only
-        TRANSFER_COUNTS["bytes_d2h"] += out_h.nbytes
+        TRANSFER_COUNTS.add("bytes_d2h", out_h.nbytes)
         values = out_h.reshape((n,) + self.layout.tile)
         field = assemble_interiors(values, self.layout, self.c.header.shape)
         if self.c.entries[t].flags & FLAG_HAS_NONFINITE:

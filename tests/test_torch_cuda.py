@@ -458,3 +458,147 @@ def test_cuda_encode_values_adversarial_cells(rng, dev, word):
                                          store)
         for a, b in zip(got, want):
             assert _bits_equal(a, b), elems
+
+
+# ------------------------------------------------- the serving stack
+
+def test_cuda_store_fixture_replay_equals_committed_bytes(dev, tmp_path):
+    """``tests/data/make_fixtures.py``'s store calls on the card (the
+    store's default device): the manifest and payloads equal the
+    committed fixture byte for byte, and the reads its values."""
+    from pathlib import Path
+
+    from repro_torch.data.fields import make_field_sequence, make_scientific_field
+    from repro_torch.engine.plan import CompressionPlan
+    from repro_torch.store import LopcStore
+
+    data = Path(__file__).resolve().parent / "data"
+    store = LopcStore.create(tmp_path / "store",
+                             plan=CompressionPlan(tile_shape=(8, 8, 8)))
+    assert store.device.type == "cuda"
+    LAUNCHES.clear()
+    store.write("snap", make_scientific_field("front", (12, 11, 10),
+                                              np.float32, seed=24), 1e-2)
+    assert LAUNCHES["solve_tiles_blockwise"] > 0
+    sframes = make_field_sequence("diffuse", "waves", (10, 9, 8), 3,
+                                  np.float32, seed=25)
+    store.write_chain("evolution", sframes[:2], 1e-1, mode="abs",
+                      keyframe_interval=2)
+    store.append_frame("evolution", sframes[2])
+    LAUNCHES.clear()
+    snap = store.read("snap")
+    assert LAUNCHES["decode_tiles_fused"] > 0
+    chain = store.read("evolution")
+    store.close()
+    for rel in ("manifest.json", "payload/snap.lopc",
+                "payload/evolution.frames"):
+        assert (tmp_path / "store" / rel).read_bytes() == \
+            (data / "store" / rel).read_bytes(), rel
+    want = np.load(data / "expected.npz")
+    assert snap.tobytes() == want["store_snap"].tobytes()
+    assert chain.tobytes() == want["store_chain"].tobytes()
+
+
+def test_cuda_service_batch_of_four_concurrent_compresses(dev):
+    """Four client threads submit at once; the batch coalesces and every
+    container equals a direct compress on the card and on the CPU."""
+    import threading
+
+    from repro_torch import engine
+    from repro_torch.service import CompressionService, ServiceConfig
+
+    rng = np.random.default_rng(11)
+    fields = [rng.standard_normal(s).astype(d) for s, d in
+              (((40, 48, 64), np.float32), ((33, 20, 70), np.float64),
+               ((16, 100, 64), np.float32), ((300, 200), np.float32))]
+    svc = CompressionService(ServiceConfig(max_delay_ms=50.0),
+                             autostart=False)
+    futs = [None] * len(fields)
+
+    def client(i):
+        futs[i] = svc.submit_compress(fields[i], 1e-2)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(fields))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    LAUNCHES.clear()
+    svc.start()
+    try:
+        blobs = [f.result(timeout=300) for f in futs]
+        m = svc.metrics()
+    finally:
+        svc.stop()
+    assert m.max_batch_occupancy == len(fields) and m.failed == 0
+    assert LAUNCHES["solve_tiles_blockwise"] > 0
+    assert LAUNCHES["encode_ints_fused"] > 0
+    for x, b in zip(fields, blobs):
+        assert b == engine.compress(x, 1e-2)
+        assert b == engine.compress(x, 1e-2, device="cpu")
+
+
+def test_cuda_traced_compress_spans_measure_device_time(dev, monkeypatch):
+    """With tracing on, each stage fences its outputs, so a stage's span
+    holds the device work it queued.  The subbin encode (``exec.encode``)
+    and the decode kernel (``exec.decode``) each queue a spin of known
+    length behind their kernel; their spans must last at least that long
+    (without the fence they close as soon as the work is queued).  Every
+    ``exec.*`` span of a compress and a decompress on the card carries a
+    nonzero duration, nested inside its engine group's."""
+    from repro_torch import engine, obs
+    from repro_torch.engine import device
+
+    x = np.random.default_rng(12).standard_normal((64, 96, 128)).astype(
+        np.float32)
+    engine.decompress(engine.compress(x, 1e-2))  # load the libraries
+    cycles = 100_000_000
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    spin_us = start.elapsed_time(end) * 1e3
+    spins = {"exec.encode": 0, "exec.decode": 0}
+
+    def spun(fn, stage, when=lambda *a: True):
+        def run(*a):
+            out = fn(*a)
+            if when(*a):
+                torch.cuda._sleep(cycles)
+                spins[stage] += 1
+            return out
+        return run
+
+    # the subbin encode is the only "raw" one; the bins' is "delta"
+    monkeypatch.setattr(device, "encode_tiles", spun(
+        device.encode_tiles, "exec.encode", lambda ints, chunk, transform: transform == "raw"))
+    for name in ("resident_decode_order", "resident_decode_plain"):
+        monkeypatch.setattr(device, name, spun(getattr(device, name),
+                                               "exec.decode"))
+    obs.tracer().drain()
+    obs.enable()
+    try:
+        blob = engine.compress(x, 1e-2)
+        engine.decompress(blob)
+        spans = obs.tracer().drain()
+    finally:
+        obs.disable()
+    monkeypatch.undo()
+    assert blob == engine.compress(x, 1e-2)
+    by_id = {s.span_id: s for s in spans}
+    stages = [s for s in spans if s.name.startswith("exec.")]
+    assert {s.name for s in stages} >= {"exec.upload", "exec.solve",
+                                        "exec.encode", "exec.download",
+                                        "exec.stream_prep", "exec.decode"}
+    for name, n in spins.items():
+        assert n > 0, name
+        held = sum(s.dur_us for s in stages if s.name == name)
+        assert held >= 0.9 * n * spin_us, (name, held, n, spin_us)
+    for s in stages:
+        assert s.dur_us > 0, s.name
+        group = s
+        while not group.name.startswith("engine."):
+            group = by_id[group.parent_id]
+        assert s.dur_us <= group.dur_us

@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro import engine as ref_engine
 from repro_torch import engine as pt_engine
@@ -24,6 +25,17 @@ from repro_torch.engine import executor as pt_executor
 PLAIN_HASHES = json.loads(
     (Path(pt_engine.__file__).resolve().parents[1] / "data"
      / "plain_hashes.json").read_text())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: its tensors are small, and a
+    pool of threads in each of several test worker processes
+    oversubscribes the cores (see test_torch_temporal.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _nonfinite(shape, dtype, seed):

@@ -268,7 +268,10 @@ def test_chain_arguments():
     with pytest.raises(ValueError, match="solver"):
         temporal.compress_chain([a], EB, solver="nope", device="cpu")
     assert temporal.compress_chains([], EB, device="cpu") == []
-    for kw, row in [({"put": lambda x: x}, "row 13"),
-                    ({"group_cb": print}, "row 12")]:
-        with pytest.raises(NotImplementedError, match=row):
-            temporal.compress_chains([[a]], EB, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="row 13"):
+        temporal.compress_chains([[a]], EB, device="cpu", put=lambda x: x)
+    # group_cb (row 12, the serving stack) is ported: one dict per step
+    infos = []
+    temporal.compress_chains([[a]], EB, device="cpu", group_cb=infos.append)
+    assert [(i["kind"], i["t"], i["frame_kind"]) for i in infos] == \
+        [("chain_step", 0, "key")]

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core as ref_core
 from benchmarks.check_determinism import DTYPES, EB, SHAPES
@@ -23,6 +24,17 @@ from repro_torch.data.fields import make_scientific_field
 SNAPSHOT = [(name, shape, dtype) for name in sorted(FIELD_GENERATORS)
             for shape in SHAPES for dtype in DTYPES]
 IDS = [f"{n}/{'x'.join(map(str, s))}/{d}" for n, s, d in SNAPSHOT]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: its tensors are small, and a
+    pool of threads in each of several test worker processes
+    oversubscribes the cores (see test_torch_temporal.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _field(name, shape, dtype):
@@ -136,8 +148,6 @@ def test_v1_errors_equal_reference(args, kw):
 
 
 def test_v1_entry_points_refuse_to_run_on_cpu_unasked():
-    import torch
-
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     x = np.linspace(0, 1, 64, dtype=np.float32)
