@@ -137,6 +137,27 @@ Phases; any failure exits nonzero before the last line is printed:
    traces written to the run's output directory and validated against
    ``benchmarks/baselines/trace_schema.json`` in single mode, each
    ``exec.*`` stage's summed ms logged against ``engine.compress_group``.
+2i. The sharded store cluster (``repro_torch.cluster``) on the card,
+   launches counted per path (cluster write, read, chain: the cluster's
+   own calls).  In process, a ``LocalCluster`` of 4 shards, 2 replicas,
+   default plan: the router ``put``s phase 2's ISABEL container (each
+   shard's sparse container must hold byte-verbatim sections of exactly
+   its tiles, every tile on exactly 2 shards) and ``write``s the field
+   (kernels 1 and 2; the same shard payloads); phase 2c's 60-tile box
+   (kernel 3 in the workers) must equal the full decode's crop and a
+   single store's read, the full read phase 2's decode; phase 2h's chain
+   written with 3 frames and a 4th appended must leave the home
+   replicas' payloads equal to phase 2h's store's and ``read_frame(3)``
+   equal to its read; with the box's first tile's primary owner killed
+   the box must come back equal, in 2 gather rounds, replicas serving
+   tiles.  The box (healthy, degraded, and a single store's) and the
+   full read are timed in separate passes, tile caches emptied before
+   each; one traced box read, healthy and degraded, logs its spans'
+   summed ms by name.  Over sockets, ``python -m repro_torch.launch.serve --cluster
+   4 --trace-out``: it must exit 0 (its reads checked byte-identical to
+   a single store, one worker SIGKILLed) and its trace validate against
+   the schema in cluster mode from at least 2 processes; its read
+   traces' spans are summed by name too.
 3. Width runs: the same entry points on full-size fields at bounds that
    reach the int32 and int64 bins widths (ISABEL's also on the plain
    path), on 1-D and 2-D fields whose tiles are the (1,1,4096) and
@@ -212,6 +233,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1276,7 +1298,9 @@ def store_path(store, x, blob, y, frames, eng, executor, kernels,
     4 and ``read_frame(3)`` to ``decompress_frame``; the committed
     fixture's calls replayed on the card, byte for byte.  Returns the
     timings and the launches of the store's own calls: the references
-    (``compress_chain``, ``decompress_frame``) run after the count is read."""
+    (``compress_chain``, ``decompress_frame``) run after the count is read;
+    and the chain's payload file, bound and ``read_frame(3)``, which phase
+    2i holds the cluster's replicas to."""
     import numpy as np
 
     from repro_torch.core import bitstream
@@ -1370,7 +1394,7 @@ def store_path(store, x, blob, y, frames, eng, executor, kernels,
         f"chain of 3 written {info['write_chain_s']:.2f} s, 4th appended "
         f"{info['append_frame_s']:.2f} s (= compress_chain), read_frame(3) "
         f"{info['read_frame_s']:.2f} s; fixture replayed byte for byte")
-    return info, launches
+    return info, launches, {"payload": payload, "eb_abs": eb_abs, "frame3": got}
 
 
 def service_path(store, x, y, eng, kernels, card: str) -> tuple[dict, dict]:
@@ -1544,10 +1568,11 @@ def trace_path(store, x, blob, y, out_dir: Path) -> dict:
 
 
 def serving_phase(x, blob, y, frames, eng, executor, kernels, temporal,
-                  launches: dict, card: str) -> dict:
+                  launches: dict, card: str) -> tuple[dict, dict]:
     """Phase 2h: the store, the service and the trace, each path's
     launches counted alone (zeroed just before its own calls, read just
-    after them; the references it is held to run outside)."""
+    after them; the references it is held to run outside).  Returns the
+    timings and the store's chain (see ``store_path``)."""
     import shutil
 
     from repro_torch.store import LopcStore
@@ -1559,7 +1584,7 @@ def serving_phase(x, blob, y, frames, eng, executor, kernels, temporal,
     store = LopcStore.create(root / "isabel")
     try:
         info = {}
-        info["store"], launches["store"] = store_path(
+        info["store"], launches["store"], chain = store_path(
             store, x, blob, y, frames, eng, executor, kernels, temporal)
         info["service"], launches["service"] = service_path(
             store, x, y, eng, kernels, card)
@@ -1573,6 +1598,289 @@ def serving_phase(x, blob, y, frames, eng, executor, kernels, temporal,
                                     "decode_tiles_fused"))):
         for k in need:
             check(launches[path].get(k, 0) > 0, f"{k} never launched on the {path} path")
+    return info, chain
+
+
+# ---- 2i: the sharded store cluster
+#
+# the in-process rig: 4 shards on the card, each tile range on 2 of them
+CLUSTER_SHARDS = 4
+CLUSTER_REPLICAS = 2
+# timing passes of each cluster read, each after the tile caches are
+# emptied (the checked call before them is not timed)
+CLUSTER_REPS = 3
+_SERVE_READS = re.compile(r"healthy ([0-9.]+)s, after SIGKILL of shard "
+                          r"(\d+) ([0-9.]+)s")
+
+
+def _cluster_payloads(cl, name: str) -> dict:
+    return {i: _store_payload(w.store, name) for i, w in enumerate(cl.workers)
+            if name in w.store.names()}
+
+
+def _span_ms(spans) -> dict:
+    """Summed ms by span name (span objects or their dicts)."""
+    out: dict[str, float] = {}
+    for sp in spans:
+        d = sp if isinstance(sp, dict) else sp.as_dict()
+        out[d["name"]] = out.get(d["name"], 0.0) + d["dur_us"] / 1e3
+    return dict(sorted(out.items()))
+
+
+def _traced_read(obs, read, stores) -> tuple:
+    """One ``read()`` with tracing on, the tile caches emptied before ->
+    (its result, its spans)."""
+    for st in stores:
+        st.cache.clear()
+    obs.tracer().drain()
+    obs.enable()
+    try:
+        out = read()
+        return out, obs.tracer().drain()
+    finally:
+        obs.disable()
+        obs.FLIGHT.clear()
+
+
+def _cold_ms(read, stores, reps: int) -> list:
+    """``reps`` wall times of ``read()`` in ms, the stores' tile caches
+    emptied before each (their parsed container heads stay)."""
+    out = []
+    for _ in range(reps):
+        for st in stores:
+            st.cache.clear()
+        t0 = time.perf_counter()
+        read()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def cluster_local(root: Path, x, blob, y, frames, chain: dict, eng, kernels,
+                  launches: dict) -> dict:
+    """Phase 2i, in process: a ``LocalCluster`` of 4 shards on the card.
+    ``put`` of phase 2's isabel container (every shard's sparse container
+    holds byte-verbatim sections of exactly its tiles, each tile on 2
+    shards), ``write`` of the field (the same shard payloads), the 60-tile
+    box (= the full decode's crop and a single store's read), the full
+    read (= phase 2's decode), phase 2h's 3+1-frame chain (home replicas'
+    payloads = phase 2h's store's, ``read_frame(3)`` = its read), then the
+    box's first tile's primary owner killed: the same box, 2 gather rounds
+    and replica-served tiles.  Launches counted per path around the
+    cluster's own calls; timings from separate passes after the checks."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.cluster import LocalCluster
+    from repro_torch.core import bitstream
+    from repro_torch.store import LopcStore
+
+    box = ROI_REGIONS["straddle"]
+    whole = bitstream.read_container_v2(blob)
+    ids = eng.tiles_for_region(eng.container_layout(whole), box)
+    crop = np.ascontiguousarray(y[box]).tobytes()
+    info = {"shards": CLUSTER_SHARDS, "replicas": CLUSTER_REPLICAS,
+            "box_tiles": len(ids)}
+    single = LopcStore.create(root / "single")
+    cl = LocalCluster(root / "cluster", CLUSTER_SHARDS,
+                      n_replicas=CLUSTER_REPLICAS)
+    try:
+        router = cl.router
+        check(router.device.type == "cuda", "the cluster's router is off the card")
+        t0 = time.perf_counter()
+        router.put("isabel", blob)
+        info["scatter_ms"] = (time.perf_counter() - t0) * 1e3
+        put = _cluster_payloads(cl, "isabel")
+        held = [0] * whole.n_tiles
+        for shard, payload in put.items():
+            c = bitstream.read_container_v2(payload)
+            owned = router.map.shard_tiles("isabel", whole.n_tiles, shard)
+            present = [t for t, e in enumerate(c.entries) if e.bins_len]
+            check(present == owned, f"shard {shard} holds other tiles than "
+                  "placement gives it")
+            check(all(c.tile_payloads(t) == whole.tile_payloads(t)
+                      for t in owned),
+                  f"shard {shard}'s sections differ from the container's")
+            for t in present:
+                held[t] += 1
+        check(set(held) == {CLUSTER_REPLICAS},
+              f"tiles held by {sorted(set(held))} shards, not {CLUSTER_REPLICAS}")
+        info["tiles_per_shard"] = {s: sum(1 for t in range(whole.n_tiles) if s in
+                                          router.map.owners("isabel", t))
+                                   for s in put}
+
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        router.write("isabel", x, EB)
+        info["write_s"] = time.perf_counter() - t0
+        launches["cluster write"] = dict(kernels.LAUNCHES)
+        check(_cluster_payloads(cl, "isabel") == put,
+              "router.write's shard payloads differ from the scattered container's")
+
+        single.put("isabel", blob)
+        kernels.reset_launches()
+        got_box = router.read_roi("isabel", box)
+        got_full = router.read("isabel")
+        launches["cluster read"] = dict(kernels.LAUNCHES)
+        check(got_box.tobytes() == crop, "the cluster's box differs from the "
+              "full decode's crop")
+        check(single.read_roi("isabel", box).tobytes() == crop,
+              "the single store's box differs from the full decode's crop")
+        check(got_full.tobytes() == y.tobytes(),
+              "the cluster's full read differs from phase 2's decode")
+        del got_full
+        stores = [w.store for w in cl.workers]
+        info["box_cold_ms"] = _cold_ms(lambda: router.read_roi("isabel", box),
+                                       stores, CLUSTER_REPS)
+        info["single_box_cold_ms"] = _cold_ms(
+            lambda: single.read_roi("isabel", box), [single], CLUSTER_REPS)
+        info["full_read_ms"] = _cold_ms(lambda: router.read("isabel"), stores, 2)
+        info["full_read_MB_s"] = x.nbytes / 1e3 / statistics.median(
+            info["full_read_ms"])
+
+        kernels.reset_launches()
+        router.write_chain("isabel-chain", frames[:3], chain["eb_abs"], mode="abs")
+        t_app = router.append_frame("isabel-chain", frames[3])
+        frame3 = router.read_frame("isabel-chain", 3)
+        launches["cluster chain"] = dict(kernels.LAUNCHES)
+        zigzag = kernels.TRANSFORM_LAUNCHES["encode_ints_fused_zigzag"]
+        homes = router.map.home("isabel-chain")
+        check(t_app == 3, "the cluster's append gave another frame index")
+        check(_cluster_payloads(cl, "isabel-chain")
+              == {s: chain["payload"] for s in homes},
+              "the chain's home replicas differ from the single store's payload")
+        check(frame3.tobytes() == chain["frame3"].tobytes(),
+              "the cluster's read_frame(3) differs from the single store's")
+        check(zigzag > 0, "the appended residual frame never ran the zigzag")
+        info["chain_homes"] = list(homes)
+        info["chain_zigzag_launches"] = zigzag
+
+        # where a box read's time goes: its spans, healthy and degraded
+        read_box = functools.partial(router.read_roi, "isabel", box)
+        got_box, spans = _traced_read(obs, read_box, stores)
+        check(got_box.tobytes() == crop, "the traced box read differs")
+        info["box_span_ms"] = _span_ms(spans)
+
+        victim = router.map.owners("isabel", ids[0])[0]
+        cl.kill(victim)
+        failover0 = router.metrics.snapshot()["failover_reads"]
+        got_box, spans = _traced_read(obs, read_box, stores)
+        info["box_degraded_span_ms"] = _span_ms(spans)
+        check(got_box.tobytes() == crop, "the box read after the kill differs")
+        gather = [s for s in spans if s.name == "router.gather"]
+        check(len(gather) == 1 and gather[0].tags.get("rounds") == 2,
+              f"the degraded read's gather rounds: "
+              f"{[g.tags.get('rounds') for g in gather]}")
+        check(any(s.name == "lprc.call" and s.status == "ShardDown"
+                  and s.tags.get("shard") == victim for s in spans),
+              "the degraded read has no ShardDown attempt")
+        snap = router.metrics.snapshot()
+        check(snap["failover_reads"] > failover0,
+              "no tile was served by a replica after the kill")
+        info["victim"] = victim
+        info["failover_tiles"] = gather[0].tags.get("failover_tiles")
+        info["box_degraded_cold_ms"] = _cold_ms(
+            lambda: router.read_roi("isabel", box), stores, CLUSTER_REPS)
+        info["router_metrics"] = snap
+    finally:
+        cl.close()
+        single.close()
+    return info
+
+
+def cluster_socket(out_dir: Path) -> dict:
+    """Phase 2i, over sockets: ``python -m repro_torch.launch.serve
+    --cluster 4 --trace-out``, four worker subprocesses on the card;
+    its reads are byte-identical to a single store (its own check), one
+    worker is SIGKILLed mid-serving, and its trace validates in cluster
+    mode from at least 2 processes.  The serve process gets a session of
+    its own, and the whole session is killed if it outlives its time."""
+    import os
+    import signal
+
+    from repro_torch import obs
+
+    trace = out_dir / "chip_smoke_cluster_trace.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--cluster",
+           str(CLUSTER_SHARDS), "--trace-out", str(trace)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail("serve --cluster outlived 300 s")
+    serve_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"serve --cluster failed ({proc.returncode}): {err[-2000:]}")
+    doc = json.loads(trace.read_text())
+    schema = json.loads(
+        (ROOT / "benchmarks" / "baselines" / "trace_schema.json").read_text())
+    errors = obs.validate_trace(doc, schema)
+    check(not errors, f"serve --cluster's trace fails the schema: {errors[:3]}")
+    pids = {s["pid"] for s in doc["spans"]}
+    check(len(pids) >= 2, f"serve --cluster's trace holds {len(pids)} process")
+    m = _SERVE_READS.search(out)
+    check(m is not None, "serve --cluster printed no read times")
+    reads = {sp["trace_id"] for sp in doc["spans"]
+             if sp["name"] == "router.read" and sp.get("parent_id") is None}
+    return {"serve_s": serve_s, "healthy_s": float(m.group(1)),
+            "killed_shard": int(m.group(2)), "degraded_s": float(m.group(3)),
+            "spans": len(doc["spans"]), "pids": len(pids),
+            "read_traces": len(reads),
+            "read_span_ms": _span_ms(sp for sp in doc["spans"]
+                                     if sp["trace_id"] in reads),
+            "stdout": out.strip().splitlines()}
+
+
+def cluster_phase(x, blob, y, frames, chain: dict, eng, kernels,
+                  launches: dict, single_cold_s: float, card: str) -> dict:
+    """Phase 2i: the cluster in process and over sockets."""
+    import shutil
+
+    root = ROOT / "build" / "chip_smoke_cluster"
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    try:
+        info = cluster_local(root, x, blob, y, frames, chain, eng, kernels,
+                             launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    info["socket"] = cluster_socket(out_dir)
+    for path, need in (("cluster write", ("solve_tiles_blockwise",
+                                          "encode_ints_fused")),
+                       ("cluster read", ("decode_tiles_fused",)),
+                       ("cluster chain", ("solve_tiles_blockwise",
+                                          "encode_ints_fused"))):
+        for k in need:
+            check(launches[path].get(k, 0) > 0, f"{k} never launched on the {path} path")
+    med = {k: statistics.median(info[k]) for k in
+           ("box_cold_ms", "box_degraded_cold_ms", "single_box_cold_ms")}
+    sock = info["socket"]
+    log(f"2i cluster: {CLUSTER_SHARDS} shards x{CLUSTER_REPLICAS} in process; "
+        f"scatter {info['scatter_ms']:.1f} ms, write {info['write_s']:.2f} s "
+        f"(= the scatter's shard payloads); box ({info['box_tiles']} tiles) "
+        f"cold {med['box_cold_ms']:.1f} ms healthy, "
+        f"{med['box_degraded_cold_ms']:.1f} ms with shard {info['victim']} "
+        f"killed ({info['failover_tiles']} tiles from replicas), single store "
+        f"{med['single_box_cold_ms']:.1f} ms (phase 2h: "
+        f"{single_cold_s * 1e3:.1f}); full read {info['full_read_MB_s']:.1f} "
+        f"MB/s; chain replicas = the single store's; serve --cluster "
+        f"{CLUSTER_SHARDS}: reads healthy {sock['healthy_s']:.2f} s, degraded "
+        f"{sock['degraded_s']:.2f} s, {sock['spans']} spans from "
+        f"{sock['pids']} processes, valid, {sock['serve_s']:.1f} s; card {card}")
+    for label, ms in (("box, healthy", info["box_span_ms"]),
+                      ("box, degraded", info["box_degraded_span_ms"]),
+                      (f"serve --cluster's {sock['read_traces']} reads",
+                       sock["read_span_ms"])):
+        log(f"2i spans ({label}, traced): "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items()))
+    for line in sock["stdout"]:
+        log(f"  serve --cluster | {line}")
     return info
 
 
@@ -2634,10 +2942,17 @@ def main() -> None:
     phase_done("2g chains")
 
     # ---- 2h. the serving stack at full size: store, service, trace
-    serving = serving_phase(*runs[0][0], isabel_frames, eng, executor,
-                            kernels, temporal, launches, card)
-    del isabel_frames
+    serving, single_chain = serving_phase(*runs[0][0], isabel_frames, eng,
+                                          executor, kernels, temporal,
+                                          launches, card)
     phase_done("2h serving")
+
+    # ---- 2i. the sharded store cluster on the card
+    cluster = cluster_phase(*runs[0][0], isabel_frames, single_chain, eng,
+                            kernels, launches, serving["store"]["roi_cold_s"],
+                            card)
+    del isabel_frames, single_chain
+    phase_done("2i cluster")
     log("launches by path: " + json.dumps(launches))
     log(json.dumps({"full_size": results, "launches_by_path": launches}))
     profiles = {f"{cell[0]}{kind}": profile(*cell, api, field, **kw)
@@ -2840,7 +3155,7 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "full_size": results,
          "ff32": ff32, "chains": chains, "profiles": profiles, "roi": roi,
-         "serving": serving,
+         "serving": serving, "cluster": cluster,
          "phase_s": phase_s,
          "launches_by_path": launches, "kernels": rows,
          "seconds": time.perf_counter() - T0}, indent=1))

@@ -1,5 +1,6 @@
-"""Serving launcher of the port: the LOPC compression service and the
-store behind it (port of ``repro.launch.serve``'s single-process modes).
+"""Serving launcher of the port: the LOPC compression service, the
+store behind it and the sharded store cluster (port of
+``repro.launch.serve``'s LOPC modes).
 
 Compression-service mode: a pool of concurrent client threads fires
 mixed-shape compress/decompress/ROI requests and one temporal chain each
@@ -21,13 +22,23 @@ decoded-tiles-per-request figure show up in the report:
   PYTHONPATH=src python -m repro_torch.launch.serve --store \\
       --clients 8 --requests-per-client 6 --eb 1e-2 --tile 16,16,64
 
-Both modes run on the CUDA device; ``--device cpu`` runs the kernels'
-plain versions.  Observability: ``--trace-out trace.json`` enables
-end-to-end tracing and writes a Perfetto-loadable trace of the run;
-``--metrics-dump PATH`` (or ``-`` for stdout) writes the unified
-registry as Prometheus text exposition; ``--flight-dir DIR`` makes
-failure flight dumps land as JSON files there.  The reference's LLM mode
-(``--arch``) and cluster mode (``--cluster``) are not ported yet.
+Cluster mode: N shard worker subprocesses (``python -m
+repro_torch.cluster.worker``) behind one router; writes scatter, region
+reads gather byte-identically to a single-process store, and the run
+SIGKILLs a worker mid-serving to show replica failover:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --cluster 4 \
+      --clients 8 --requests-per-client 6
+
+Every mode runs on the CUDA device (cluster mode: the router and every
+worker); ``--device cpu`` runs the kernels' plain versions.
+Observability: ``--trace-out trace.json`` enables end-to-end tracing and
+writes a Perfetto-loadable trace of the run (cluster mode propagates
+tracing into the worker subprocesses, whose spans ride home on the LPRC
+replies); ``--metrics-dump PATH`` (or ``-`` for stdout) writes the
+unified registry as Prometheus text exposition; ``--flight-dir DIR``
+makes failure flight dumps land as JSON files there (also exported to
+cluster workers).  The reference's LLM mode (``--arch``) is not ported.
 """
 from __future__ import annotations
 
@@ -362,6 +373,108 @@ def serve_store(args):
             shutil.rmtree(root, ignore_errors=True)
 
 
+def serve_cluster(args):
+    """Drive a sharded store cluster: N worker subprocesses, one router.
+
+    Spawns ``--cluster N`` shard workers (``python -m
+    repro_torch.cluster.worker``, each a real ``LopcStore`` directory
+    under a real ``CompressionService``, behind a TCP socket, on
+    ``--device``), scatters client writes through the router, hammers
+    concurrent region reads, then SIGKILLs one worker mid-serving and
+    keeps reading — the replica serves the dead shard's tiles and every
+    read stays byte-identical to a single-process store on the same
+    device.  Ends with the ``ClusterMetrics`` report: per-shard health,
+    replica-served tiles, and the workers' aggregated service metrics.
+    """
+    import shutil
+    import tempfile
+
+    from repro_torch.cluster import ProcessCluster
+    from repro_torch.data.fields import make_scientific_field
+    from repro_torch.engine.plan import CompressionPlan
+    from repro_torch.store import LopcStore
+
+    plan = CompressionPlan(tile_shape=_parse_tile(args.tile),
+                           batch_tiles=args.batch_tiles)
+    root = args.store_dir or tempfile.mkdtemp(prefix="lopc-cluster-")
+    n_shards = args.cluster
+    shape = (48, 48, 32)
+    names = [f"field{i}" for i in range(max(2, args.requests_per_client))]
+    rois = [tuple(slice(4 * i, 4 * i + 16) for _ in range(3))
+            for i in range(4)]
+
+    child_env = None
+    if args.trace_out:
+        # workers trace from import time; their spans piggyback home on
+        # LPRC replies, so the router-side trace file holds the cluster
+        child_env = {"LOPC_TRACE": "1"}
+        if args.flight_dir:
+            child_env["LOPC_FLIGHT_DIR"] = args.flight_dir
+
+    try:
+        with ProcessCluster(root + "/shards", n_shards, plan=plan,
+                            n_replicas=min(2, n_shards),
+                            adaptive_eb=args.adaptive_eb,
+                            env=child_env, device=args.device) as cluster:
+            router = cluster.router
+            fields = {}
+            t0 = time.perf_counter()
+            for i, name in enumerate(names):
+                x = make_scientific_field(
+                    ["gaussians", "turbulence", "waves"][i % 3], shape,
+                    np.float32, seed=50 + i)
+                fields[name] = x
+                router.write(name, x, args.eb)
+            t_write = time.perf_counter() - t0
+
+            # single-process reference for the byte contract
+            ref = LopcStore.create(root + "/ref", plan=plan,
+                                   device=args.device)
+            for name, x in fields.items():
+                ref.write(name, x, args.eb, adaptive_eb=args.adaptive_eb)
+
+            def read_all() -> float:
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(args.clients) as pool:
+                    outs = list(pool.map(
+                        lambda i: router.read_roi(names[i % len(names)],
+                                                  rois[i % len(rois)]),
+                        range(args.clients * args.requests_per_client)))
+                dt = time.perf_counter() - t0
+                for i, got in enumerate(outs):
+                    want = ref.read_roi(names[i % len(names)],
+                                        rois[i % len(rois)])
+                    if got.tobytes() != want.tobytes():
+                        raise SystemExit(f"cluster read {i} diverged from "
+                                         "the single-process store")
+                return dt
+
+            t_healthy = read_all()
+            victim = router.map.owners(names[0], 0)[0]
+            cluster.kill(victim)
+            t_degraded = read_all()
+            snap = router.cluster_metrics()
+            ref.close()
+
+        mb = (sum(x.nbytes for x in fields.values())
+              * args.clients * args.requests_per_client
+              / len(names) / 1e6)
+        print(f"cluster: {n_shards} shard workers (subprocesses), "
+              f"replication x{min(2, n_shards)}, {args.clients} clients, "
+              f"device={args.device}")
+        print(f"  writes     {len(names)} arrays scattered in "
+              f"{t_write:.2f}s")
+        print(f"  reads      {args.clients * args.requests_per_client} "
+              f"region reads, byte-identical to a single-process store: "
+              f"healthy {t_healthy:.2f}s, after SIGKILL of shard "
+              f"{victim} {t_degraded:.2f}s (~{mb:.1f} MB served)")
+        for line in router.metrics.lines(snap["workers"]):
+            print(f"  {line}")
+    finally:
+        if not args.store_dir:
+            shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="serve LOPC compression requests on the port")
@@ -376,14 +489,18 @@ def main(argv=None):
                          "persistent LopcStore through the service "
                          "(store-backed reads, decoded-tile cache)")
     ap.add_argument("--cluster", type=int, default=None, metavar="N",
-                    help="the reference's sharded store cluster (not "
-                         "ported: ROADMAP.md module queue row 12c)")
+                    help="serve a sharded store cluster: N shard worker "
+                         "subprocesses behind one router; writes scatter, "
+                         "reads gather byte-identically, and the demo "
+                         "SIGKILLs a worker mid-serving to show replica "
+                         "failover")
     ap.add_argument("--store-dir", default=None,
                     help="store mode: directory to hold the store (default: "
                          "a fresh temp dir, removed after the run)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the service and the store run on "
-                         "(cuda; cpu runs the kernels' plain versions)")
+                         "(cluster mode: the router and every worker; "
+                         "cuda; cpu runs the kernels' plain versions)")
     ap.add_argument("--eb", type=float, default=1e-2,
                     help="compression service: NOA error bound")
     ap.add_argument("--tile", default="16,16,64",
@@ -420,14 +537,17 @@ def main(argv=None):
                          "(bytes are path-independent)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="enable end-to-end tracing and write a "
-                         "Perfetto-loadable Chrome trace JSON of the run")
+                         "Perfetto-loadable Chrome trace JSON of the run "
+                         "(cluster mode propagates tracing into the "
+                         "worker subprocesses)")
     ap.add_argument("--metrics-dump", default=None, metavar="PATH",
                     help="write the unified metrics registry as "
                          "Prometheus text exposition at the end of the "
                          "run ('-' for stdout)")
     ap.add_argument("--flight-dir", default=None, metavar="DIR",
                     help="write failure flight-recorder dumps as JSON "
-                         "files into DIR")
+                         "files into DIR (also exported to cluster "
+                         "workers)")
     ap.add_argument("--adaptive-eb", default="off",
                     choices=["off", "tda"],
                     help="topology-adaptive per-tile error bounds (the eb "
@@ -435,14 +555,15 @@ def main(argv=None):
                          "points stay exactly preserved either way")
     args = ap.parse_args(argv)
 
-    if args.cluster:
-        raise SystemExit("--cluster is not ported yet: ROADMAP.md module "
-                         "queue row 12c (cluster/) brings it")
     if args.arch:
         raise SystemExit("--arch (LLM serving) is not ported: ROADMAP.md "
                          "module queue row 15 (the LM scaffold) decides it")
     _parse_tile(args.tile)  # a malformed --tile exits before any work
     _obs_configure(args)
+    if args.cluster:
+        serve_cluster(args)
+        _obs_report(args, "cluster")
+        return
     if args.store:
         serve_store(args)
         _obs_report(args, "store")
@@ -451,8 +572,8 @@ def main(argv=None):
         serve_compression(args)
         _obs_report(args, "compress-service")
         return
-    raise SystemExit("pass --compress-service or --store (--cluster and "
-                     "--arch are not ported yet)")
+    raise SystemExit("pass --compress-service, --store or --cluster N "
+                     "(--arch is not ported)")
 
 
 if __name__ == "__main__":

@@ -11,8 +11,8 @@ tracing is off:
   groups, the executor's fenced stages and the store's batched reads
   all open child spans under the ambient context, so one request's time
   is attributable stage by stage.  ``inject``/``extract`` carry the
-  context across a wire header, as the reference's cluster router and
-  workers do (the cluster is not ported yet).
+  context across a wire header (the cluster router's LPRC calls and the
+  workers' spans, which ride home in the replies).
 * :mod:`~repro_torch.obs.registry` — a :class:`MetricsRegistry` of counters,
   gauges, and histograms with locked increments and a Prometheus-style
   text exposition.  The registry backs the ``ServiceMetrics``

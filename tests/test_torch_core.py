@@ -280,6 +280,11 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.store.store", "repro_torch.store.cache",
             "repro_torch.service.service", "repro_torch.service.metrics",
             "repro_torch.launch.serve"} <= names
+    # and the cluster's
+    assert {"repro_torch.cluster", "repro_torch.cluster.protocol",
+            "repro_torch.cluster.placement", "repro_torch.cluster.metrics",
+            "repro_torch.cluster.worker",
+            "repro_torch.cluster.router"} <= names
 
 
 def test_every_port_module_imports_first():

@@ -602,3 +602,44 @@ def test_cuda_traced_compress_spans_measure_device_time(dev, monkeypatch):
         while not group.name.startswith("engine."):
             group = by_id[group.parent_id]
         assert s.dur_us <= group.dur_us
+
+
+def test_cuda_cluster_reads_equal_a_single_store(dev, tmp_path):
+    """A 4-shard ``LocalCluster`` on the card (its default device): the
+    router's write launches kernels 1 and 2, the workers' tile reads
+    kernel 3; region and full reads equal a single store's on the card
+    and on the CPU, also after the first tile's primary owner is
+    killed."""
+    from repro_torch.cluster import LocalCluster
+    from repro_torch.engine.plan import CompressionPlan
+    from repro_torch.store import LopcStore
+
+    plan = CompressionPlan(tile_shape=(8, 8, 8), batch_tiles=4)
+    x = np.random.default_rng(13).standard_normal((24, 20, 16)).astype(
+        np.float32)
+    x[1, 2, 3] = np.nan
+    roi = (slice(3, 14), slice(2, 10), slice(5, 13))
+    single = LopcStore.create(tmp_path / "single", plan=plan)
+    cpu = LopcStore.create(tmp_path / "cpu", plan=plan, device="cpu")
+    try:
+        with LocalCluster(tmp_path / "cl", 4, plan=plan, n_replicas=2,
+                          backoff=0.0) as cl:
+            assert cl.router.device.type == "cuda"
+            LAUNCHES.clear()
+            cl.router.write("x", x, 1e-2)
+            assert LAUNCHES["solve_tiles_blockwise"] > 0
+            assert LAUNCHES["encode_ints_fused"] > 0
+            LAUNCHES.clear()
+            box = cl.router.read_roi("x", roi)
+            assert LAUNCHES["decode_tiles_fused"] > 0
+            for s in (single, cpu):
+                s.write("x", x, 1e-2)
+                assert box.tobytes() == s.read_roi("x", roi).tobytes()
+            full = cl.router.read("x")
+            assert full.tobytes() == cpu.read("x").tobytes()
+            cl.kill(cl.router.map.owners("x", 0)[0])
+            assert cl.router.read("x").tobytes() == full.tobytes()
+            assert cl.router.metrics.snapshot()["failover_reads"] > 0
+    finally:
+        single.close()
+        cpu.close()
