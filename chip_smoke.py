@@ -158,6 +158,24 @@ Phases; any failure exits nonzero before the last line is printed:
    a single store, one worker SIGKILLed) and its trace validate against
    the schema in cluster mode from at least 2 processes; its read
    traces' spans are summed by name too.
+2j. Distributed compression, the checkpoint and the baselines on the
+   card, launches counted per path.  ``distributed.compress_fields_sharded``
+   of ISABEL in this process over an NCCL group of world size 1 (a
+   ``FileStore`` rendezvous; the sharded solve and its collectives on the
+   card): its container must equal phase 2's, decode to phase 2's values,
+   and its warm MB/s is logged beside phase 2's.  Then 2 gloo ranks, each
+   a subprocess with its kernels on the one card (NCCL refuses two ranks
+   on one GPU): both ranks' containers must equal phase 2's; their warm
+   wall time is logged against phase 2's.  A ``CheckpointManager`` (async
+   save, eb 1e-3 absolute) saves and restores ISABEL, a 64x384x384 slab of
+   Miranda, a 4-D f32 leaf and int32 and bf16 leaves: lossy leaves within
+   the bound, the others exact; a lossless save of the 4-D leaf and an
+   ISABEL cut restores exactly; a small tree's leaf files written on the
+   card must equal the CPU path's; save and restore MB/s logged.  The
+   comparison codecs (``codecs.baselines``) on ISABEL at eb 1e-2 NOA:
+   each codec's ratio beside LOPC's, with MB/s, the lossy ones within the
+   bound, ``lossless_fp_decode`` exact, and each codec's blob on a cut
+   equal to the CPU's.
 3. Width runs: the same entry points on full-size fields at bounds that
    reach the int32 and int64 bins widths (ISABEL's also on the plain
    path), on 1-D and 2-D fields whose tiles are the (1,1,4096) and
@@ -165,7 +183,9 @@ Phases; any failure exits nonzero before the last line is printed:
    64-bit lane on the 1-D tile, whose haloed state exceeds shared
    memory), and an adaptive f64 field whose subbin sections are 8 bytes
    wide (the encode and the decode kernel at w=64; its container must
-   equal the CPU's).  Bounds within 2x of the smallest normal: a field
+   equal the CPU's), and a decreasing run of 40000 floats inside one bin
+   (int32 subbin sections), whose container must hash to the reference's
+   (``src/repro_torch/data/reference_hashes.json``).  Bounds within 2x of the smallest normal: a field
    of 4 * tiny * N(0, 1) cells at eb = 1.5 * tiny, f32 and f64,
    order-preserving and plain, and at eb = 4 * tiny, plain, must give
    the CPU's containers and decodes (the quantize and decode kernels
@@ -233,6 +253,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -367,13 +388,14 @@ class Recorder:
 
     def _wrap_solve(self, real):
         def wrapped(flags, idx, mask, max_rounds, adjacency, sub0=None,
-                    n_real=None):
+                    n_real=None, **sharded):
             self.solve_round = 0
-            self.solves.setdefault((self.lane(sub0), self.tag), (
-                flags, idx, mask, max_rounds, adjacency,
-                None if sub0 is None else sub0.clone(), n_real))
+            if not sharded:  # a sharded batch's block is not replayed
+                self.solves.setdefault((self.lane(sub0), self.tag), (
+                    flags, idx, mask, max_rounds, adjacency,
+                    None if sub0 is None else sub0.clone(), n_real))
             return real(flags, idx, mask, max_rounds, adjacency=adjacency,
-                        sub0=sub0, n_real=n_real)
+                        sub0=sub0, n_real=n_real, **sharded)
         return wrapped
 
     def _wrap(self, name, real):
@@ -1884,6 +1906,288 @@ def cluster_phase(x, blob, y, frames, chain: dict, eng, kernels,
     return info
 
 
+# ---- 2j: distributed compression, the checkpoint, the baselines
+
+SHARD_RANK = """
+import hashlib, json, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, world, store, field, out, eb = sys.argv[1:7]
+rank, world, eb = int(rank), int(world), float(eb)
+dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                        rank=rank, world_size=world)
+try:
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels
+    from repro_torch.distributed import _collectives, compress_fields_sharded
+
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    x = np.load(field)
+    res = {"rank": rank, "s": []}
+    for rep in range(2):  # cold, then warm
+        kernels.reset_launches()
+        _collectives.reset_counts()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = compress_fields_sharded([x], eb, mesh, device="cuda")[0]
+        res["s"].append(time.perf_counter() - t0)
+    res["launches"] = dict(kernels.LAUNCHES)
+    res["collectives"] = dict(_collectives.COUNTS)
+    res["sha256"] = hashlib.sha256(blob).hexdigest()
+    Path(out).write_text(json.dumps(res))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def sharded_nccl(x, blob, y, eng, kernels, launches: dict, root: Path) -> dict:
+    """ISABEL through ``compress_fields_sharded`` over an NCCL group of
+    world size 1 in this process: phase 2's container and decode."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import _collectives, compress_fields_sharded
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(root / "nccl_store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        times = []
+        for rep in range(3):  # cold, then two warm
+            kernels.reset_launches()
+            _collectives.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = compress_fields_sharded([x], EB, mesh)[0]
+            times.append(time.perf_counter() - t0)
+            if rep == 0:
+                launches["isabel sharded nccl compress"] = dict(kernels.LAUNCHES)
+                coll = dict(_collectives.COUNTS)
+            check(got == blob, "the NCCL-sharded container differs from "
+                               "phase 2's")
+    finally:
+        dist.destroy_process_group()
+    kernels.reset_launches()
+    y2 = eng.decompress(got)
+    launches["isabel sharded nccl decompress"] = dict(kernels.LAUNCHES)
+    check(y2.tobytes() == y.tobytes(),
+          "the NCCL-sharded container decodes to other values")
+    return {"s": times, "collectives": coll,
+            "warm_MB_s": x.nbytes / 1e6 / statistics.median(times[1:])}
+
+
+def sharded_gloo(x, blob, launches: dict, root: Path, world: int = 2) -> dict:
+    """ISABEL through ``compress_fields_sharded`` on ``world`` gloo ranks,
+    each a subprocess whose kernels run on the one card."""
+    import numpy as np
+
+    field = root / "isabel.npy"
+    np.save(field, x)
+    want = hashlib.sha256(blob).hexdigest()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    outs = [root / f"gloo_rank{r}.json" for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_RANK, str(r), str(world),
+         str(root / "gloo_store"), str(field), str(outs[r]), str(EB)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(world)]
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"gloo rank {r} failed: {err[-2000:]}")
+        res = json.loads(outs[r].read_text())
+        check(res["sha256"] == want,
+              f"gloo rank {r}'s sharded container differs from phase 2's")
+        launches[f"isabel sharded gloo rank{r} compress"] = res["launches"]
+        ranks.append(res)
+    return {"world": world, "ranks": ranks, "processes_wall_s": wall,
+            "warm_s": max(res["s"][1] for res in ranks)}
+
+
+def checkpoint_path(x, miranda, kernels, launches: dict, root: Path) -> dict:
+    """A ``CheckpointManager`` save (async) and restore of ISABEL, a
+    Miranda slab, a 4-D leaf and int32 and bf16 leaves; a lossless save;
+    a small tree's files against the CPU path's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, restore_tree, save_tree
+
+    eb = 1e-3
+    rng = np.random.default_rng(0)
+    host = {"isabel": x, "miranda_slab": np.ascontiguousarray(miranda[:64]),
+            "x4": rng.standard_normal((16, 32, 64, 64)).astype(np.float32),
+            "step": np.asarray(7, np.int32),
+            "ids": rng.integers(0, 1 << 20, (4096,)).astype(np.int32)}
+    tree = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    bf = torch.from_numpy(rng.standard_normal((512, 512)).astype(np.float32))
+    tree["bf"] = bf.to(torch.bfloat16).cuda()
+    raw_mb = sum(t.numel() * t.element_size() for t in tree.values()) / 1e6
+    mgr = CheckpointManager(root / "ckpt", keep=2, eb=eb, async_save=True)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, tree)
+    returned_s = time.perf_counter() - t0
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    launches["checkpoint save"] = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, step = mgr.restore_latest(tree)
+    restore_s = time.perf_counter() - t0
+    launches["checkpoint restore"] = dict(kernels.LAUNCHES)
+    check(step == 1, "the checkpoint did not restore its step")
+    for k in ("isabel", "miranda_slab", "x4"):
+        err = float(np.abs(out[k].numpy().astype(np.float64)
+                           - host[k].astype(np.float64)).max())
+        check(0 < err <= eb, f"checkpoint leaf {k}: error {err} outside (0, {eb}]")
+    for k in ("step", "ids"):
+        check(np.array_equal(out[k].numpy(), host[k]), f"checkpoint leaf {k} changed")
+    check(torch.equal(out["bf"], tree["bf"].cpu()), "checkpoint bf16 leaf changed")
+    codecs = {m["path"]: m["codec"] for m in mgr.last_manifest["leaves"]}
+    # lossless: the 4-D leaf and an ISABEL cut (kernels 8 and 9, 8's inverse)
+    exact = {"x4": tree["x4"], "cut": tree["isabel"][:16]}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = save_tree(exact, root / "lossless", 0)
+    back, _ = restore_tree(exact, root / "lossless")
+    lossless_s = time.perf_counter() - t0
+    launches["checkpoint lossless"] = dict(kernels.LAUNCHES)
+    for k, v in exact.items():
+        check(torch.equal(back[k], v.cpu()), f"lossless checkpoint leaf {k} changed")
+    # a small tree's files: the card's equal the CPU path's
+    small = {"w": host["x4"][:2, :4].copy(), "b": miranda[0, :40, :40].copy(),
+             "bf": tree["bf"][:64].cpu()}
+    for kw in ({"eb": eb}, {}):
+        for dev in ("cuda", "cpu"):
+            save_tree(small, root / f"small-{dev}", 0, device=dev, **kw)
+        files = [{p.name: p.read_bytes()
+                  for p in sorted((root / f"small-{dev}" / "step_0").iterdir())}
+                 for dev in ("cuda", "cpu")]
+        check(files[0] == files[1],
+              f"checkpoint {kw}: the card's leaf files differ from the CPU's")
+    return {"raw_MB": raw_mb, "save_s": save_s, "save_returned_s": returned_s,
+            "restore_s": restore_s, "save_MB_s": raw_mb / save_s,
+            "restore_MB_s": raw_mb / restore_s,
+            "stored_MB": mgr.last_manifest["stored_bytes"] / 1e6,
+            "codecs": codecs, "lossless_MB": m["raw_bytes"] / 1e6,
+            "lossless_save_restore_s": lossless_s}
+
+
+def baselines_path(x, lopc_ratio: float, plain_ratio: float, kernels,
+                   launches: dict) -> dict:
+    """The comparison codecs on ISABEL at eb 1e-2 NOA."""
+    import numpy as np
+    import torch
+
+    from repro_torch.codecs import baselines
+
+    bound = EB * (float(x.max()) - float(x.min()))
+    res = {"LOPC": {"ratio": lopc_ratio}, "LOPC plain": {"ratio": plain_ratio}}
+    kernels.reset_launches()
+    for name, fn in (("pfpl_lite", lambda: baselines.pfpl_lite(x, EB)),
+                     ("sz_lorenzo", lambda: baselines.sz_lorenzo(x, EB)),
+                     ("topoqz_lite", lambda: baselines.topoqz_lite(x, EB)),
+                     ("lossless_fp", lambda: baselines.lossless_fp(x)),
+                     ("zstd_raw", lambda: baselines.zstd_raw(x))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        s = time.perf_counter() - t0
+        err = float(np.abs(r.decoded.astype(np.float64)
+                           - x.astype(np.float64)).max())
+        check(err <= (0.0 if name in ("lossless_fp", "zstd_raw") else bound),
+              f"baseline {name}: error {err} beyond its bound")
+        res[name] = {"ratio": r.ratio, "MB_s": x.nbytes / 1e6 / s,
+                     "max_abs_err": err}
+        if name == "lossless_fp":
+            t0 = time.perf_counter()
+            back = baselines.lossless_fp_decode(r.blob)
+            res[name]["decode_MB_s"] = x.nbytes / 1e6 / (time.perf_counter() - t0)
+            check(back.tobytes() == x.tobytes(), "lossless_fp_decode is not exact")
+    launches["baselines isabel"] = dict(kernels.LAUNCHES)
+    cut = np.ascontiguousarray(x[:4])
+    for name in ("pfpl_lite", "sz_lorenzo", "topoqz_lite"):
+        fn = getattr(baselines, name)
+        check(fn(cut, EB).blob == fn(cut, EB, device="cpu").blob,
+              f"baseline {name}: the card's blob differs from the CPU's on a cut")
+    check(baselines.lossless_fp(cut).blob
+          == baselines.lossless_fp(cut, device="cpu").blob,
+          "baseline lossless_fp: the card's blob differs from the CPU's")
+    return res
+
+
+def distributed_phase(x, blob, y, info: dict, plain_ratio: float, miranda,
+                      eng, kernels, launches: dict, card: str) -> dict:
+    """Phase 2j: the sharded compress (NCCL world 1, 2 gloo ranks), the
+    checkpoint and the baselines."""
+    import shutil
+
+    root = ROOT / "build" / "chip_smoke_distributed"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        out = {"nccl": sharded_nccl(x, blob, y, eng, kernels, launches, root),
+               "gloo": sharded_gloo(x, blob, launches, root),
+               "checkpoint": checkpoint_path(x, miranda, kernels, launches, root),
+               "baselines": baselines_path(x, info["ratio"], plain_ratio,
+                                           kernels, launches)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for path, need in (("isabel sharded nccl compress",
+                        ("solve_tiles_blockwise", "encode_ints_fused")),
+                       ("isabel sharded nccl decompress", ("decode_tiles_fused",)),
+                       ("isabel sharded gloo rank0 compress",
+                        ("solve_tiles_blockwise", "encode_ints_fused")),
+                       ("isabel sharded gloo rank1 compress",
+                        ("solve_tiles_blockwise", "encode_ints_fused")),
+                       ("checkpoint save", ("encode_values_fused",
+                                            "encode_ints_fused")),
+                       ("checkpoint restore", ("decode_tiles_fused_nosub",)),
+                       ("checkpoint lossless", ("bitshuffle_u32",
+                                                "rze_bitmap_u32",
+                                                "bitunshuffle_u32")),
+                       ("baselines isabel", ("bitshuffle_u32", "rze_bitmap_u32",
+                                             "bitunshuffle_u32"))):
+        for k in need:
+            check(launches[path].get(k, 0) > 0, f"{k} never launched on the {path} path")
+    nccl, gloo, ck = out["nccl"], out["gloo"], out["checkpoint"]
+    log(f"2j sharded: NCCL world 1 = phase 2's container, warm "
+        f"{nccl['warm_MB_s']:.1f} MB/s (phase 2: {info['compress_MB_s']:.1f} "
+        f"MB/s), collectives {nccl['collectives']}; {gloo['world']} gloo "
+        f"ranks = phase 2's container on both, warm {gloo['warm_s']:.3f} s a "
+        f"rank (phase 2: {info['raw_MB'] / info['compress_MB_s']:.3f} s), "
+        f"processes {gloo['processes_wall_s']:.1f} s, rank 0's collectives "
+        f"{gloo['ranks'][0]['collectives']}; card {card}")
+    log(f"2j checkpoint: {ck['raw_MB']:.1f} MB saved (async, returned after "
+        f"{ck['save_returned_s']:.3f} s) in {ck['save_s']:.2f} s = "
+        f"{ck['save_MB_s']:.1f} MB/s to {ck['stored_MB']:.1f} MB, restored in "
+        f"{ck['restore_s']:.2f} s = {ck['restore_MB_s']:.1f} MB/s; codecs "
+        f"{ck['codecs']}; lossless {ck['lossless_MB']:.1f} MB saved and "
+        f"restored in {ck['lossless_save_restore_s']:.2f} s; card {card}")
+    log("2j baselines on isabel at eb 1e-2 NOA: " + "; ".join(
+        f"{k} ratio {v['ratio']:.3f}"
+        + (f" at {v['MB_s']:.1f} MB/s" if "MB_s" in v else "")
+        for k, v in out["baselines"].items()) + f"; card {card}")
+    log("2j launches: " + json.dumps({k: v for k, v in launches.items()
+                                      if "sharded" in k or "checkpoint" in k
+                                      or "baselines" in k}))
+    return out
+
+
 # (tile-straddling box, box inside one (16, 16, 64) tile, one-cell slab)
 ROI_REGIONS = {
     "straddle": (slice(10, 40), slice(100, 170), slice(50, 200)),
@@ -2953,6 +3257,13 @@ def main() -> None:
                             card)
     del isabel_frames, single_chain
     phase_done("2i cluster")
+
+    # ---- 2j. distributed compression, the checkpoint, the baselines
+    distributed = distributed_phase(
+        *runs[0][0], runs[0][1], plain_runs[0][1]["ratio"],
+        field(*MIRANDA[:2], np.dtype(MIRANDA[2]), seed=0), eng, kernels,
+        launches, card)
+    phase_done("2j distributed")
     log("launches by path: " + json.dumps(launches))
     log(json.dumps({"full_size": results, "launches_by_path": launches}))
     profiles = {f"{cell[0]}{kind}": profile(*cell, api, field, **kw)
@@ -3046,6 +3357,15 @@ def main() -> None:
             check(blob == eng.compress(x, eb, adaptive_eb="tda", device="cpu"),
                   "the staircase's container differs on the CPU")
     check(words[1] == 4, "the decreasing run did not reach int32 subbins")
+    # the decreasing run's container against the reference's, computed
+    # once on the CPU (its 40000-sweep solve takes a minute there)
+    want = json.loads((SRC / "repro_torch" / "data"
+                       / "reference_hashes.json").read_text())
+    check(hashlib.sha256(blob).hexdigest()
+          == want["decreasing-run(40000,)/float32/abs/1.0"],
+          "the decreasing run's container differs from the reference's")
+    log("width run decreasing-run(40000,): container equals the reference's "
+        "(committed sha256)")
     tiny_bound_runs(eng, kernels, ops)
     # a field falling in linear index inside one bin on 4x4x4 plan tiles:
     # one chain through every tile; its round-2 batch (the active tiles)
@@ -3155,7 +3475,7 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "full_size": results,
          "ff32": ff32, "chains": chains, "profiles": profiles, "roi": roi,
-         "serving": serving, "cluster": cluster,
+         "serving": serving, "cluster": cluster, "distributed": distributed,
          "phase_s": phase_s,
          "launches_by_path": launches, "kernels": rows,
          "seconds": time.perf_counter() - T0}, indent=1))

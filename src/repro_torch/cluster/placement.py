@@ -28,17 +28,20 @@ Mechanics (all of it):
   entirety — lives on the owners of range 0 (:meth:`ShardMap.home`), so
   any array's info is findable by hashing its name alone.
 
-The reference also re-exports its mesh-sharded tile path here
-(``distributed.compression``: ``make_tile_put``,
-``compress_fields_sharded``) for ``Router(mesh=...)``; the port's
-``distributed`` is ROADMAP.md module queue row 13, so the port's
-``Router`` refuses a mesh and this module carries placement alone.
+The on-device half of placement is the sharded tile path in
+``distributed.compression``: :func:`make_tile_put` lays the engine's
+resident tile batches over a process group and is byte-identical to the
+single-device path, so a router may compress through it
+(``Router(mesh=...)``) and scatter the very same bytes.
 """
 from __future__ import annotations
 
 import hashlib
 from bisect import bisect_right
 from dataclasses import dataclass, field
+
+from ..distributed.compression import compress_fields_sharded  # noqa: F401
+from ..distributed.compression import make_tile_put  # noqa: F401
 
 DEFAULT_VNODES = 64
 DEFAULT_TILES_PER_RANGE = 8

@@ -34,10 +34,10 @@ need one live replica per tile range.
 The router compresses on one torch device (``device=``, default
 ``"cuda"``: kernels 1 and 2 through ``engine.compress_many``, a chain's
 residual frames through kernel 2's zigzag); the rigs pass the same
-device to every worker, whose ``READ_TILES`` decode with kernel 3.  The
-reference's ``Router(mesh=...)`` compresses through its mesh-sharded
-tile path; the port's ``distributed`` is ROADMAP.md module queue row 13,
-so a mesh raises ``NotImplementedError`` at construction.
+device to every worker, whose ``READ_TILES`` decode with kernel 3.
+``Router(mesh=...)`` compresses ``write``s through the sharded tile path
+(``distributed.make_tile_put(mesh, mesh_axis)``), byte-identical to the
+one-device path, so it scatters the very same bytes.
 """
 from __future__ import annotations
 
@@ -57,12 +57,12 @@ from .. import temporal as _temporal
 from ..core import bitstream
 from ..core.nonfinite import encode_nonfinite
 from ..core.quantize import effective_eps
-from ..engine.engine import _not_in_slice
 from ..engine.plan import (CompressionPlan, TileLayout, canonical3d_shape,
                            tiles_for_region)
 from . import protocol as proto
 from .metrics import ClusterMetrics
-from .placement import DEFAULT_TILES_PER_RANGE, DEFAULT_VNODES, ShardMap
+from .placement import (DEFAULT_TILES_PER_RANGE, DEFAULT_VNODES, ShardMap,
+                        make_tile_put)
 from .worker import ShardWorker
 
 
@@ -211,8 +211,12 @@ class Router:
                  solver: str = "auto", mesh=None, mesh_axis: str = "data",
                  read_timeout: float = 5.0, backoff: float = 0.05,
                  adaptive_eb: str = "off", device="cuda"):
-        if mesh is not None:
-            _not_in_slice("Router(mesh=...)", 13, "distributed")
+        """``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``) shards
+        the compress of every ``write`` over its ``mesh_axis`` group: every
+        rank of that group calls ``write`` in step, with the same
+        arguments (the sharded path's SPMD contract), and every rank
+        scatters the same bytes; ``device`` is where each rank's kernels
+        run.  Chains compress on ``device`` alone, as in the reference."""
         self.transports = list(transports)
         if not self.transports:
             raise ValueError("a cluster needs at least one shard")
@@ -228,6 +232,10 @@ class Router:
         self.backoff = backoff
         self.metrics = ClusterMetrics(len(self.transports))
         self.device = _engine.resolve_device(device)
+        # the on-device half: compress through the sharded tile path
+        # (byte-identical by the engine's schedule-independence)
+        self._put = (make_tile_put(mesh, mesh_axis, device=self.device)
+                     if mesh is not None else None)
 
     # -------------------------------------------------------------- calling
 
@@ -303,7 +311,8 @@ class Router:
                        dtype=str(x.dtype)):
             blob = _engine.compress_many(
                 [x], eb, mode, preserve_order, self.solver, self.plan,
-                adaptive_eb=self.adaptive_eb, device=self.device,
+                put=self._put, adaptive_eb=self.adaptive_eb,
+                device=self.device,
             )[0]
             self.put(name, blob)
         return len(blob)

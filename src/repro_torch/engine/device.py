@@ -93,7 +93,8 @@ SOLVED_TILES: deque = deque(maxlen=64)
 
 def resident_solve(flags: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
                    max_rounds: int, adjacency: tuple[torch.Tensor, torch.Tensor],
-                   sub0: torch.Tensor | None = None, n_real: int | None = None):
+                   sub0: torch.Tensor | None = None, n_real: int | None = None,
+                   shard=None):
     """Least fixed point over a resident tile batch.
 
     Rounds alternate one gather that rebuilds haloed tiles from the
@@ -122,16 +123,27 @@ def resident_solve(flags: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
     0 for subbins, ``iinfo.min`` for an ordered state, the signed twin of
     the reference's unsigned 0.
 
+    With ``shard`` (a rank's block ``[lo, hi)`` of a batch sharded over a
+    process group, ``distributed.TilePut``), ``flags``, ``idx`` and
+    ``mask`` hold the block's rows and ``sub0`` the whole batch.  Every
+    rank keeps a replica of the whole batch's state: each round it solves
+    the active tiles it owns, gathers every rank's block back into the
+    replica (one all-gather) and reads the moved tiles off the replica,
+    so every rank computes the same active set, rounds and results.
+
     Returns (interiors (C, *t) in the state's dtype, local1 (C,) sweeps
     of the first local solve, last_round (C,) the last round in which the
     tile moved, rounds run).
     """
-    c = flags.shape[0]
+    c = flags.shape[0] if shard is None else shard.capacity
+    lo, hi = (0, c) if shard is None else (shard.lo, shard.hi)
     n = c if n_real is None else n_real
     halo_shape = tuple(idx.shape[1:])
-    idx2, mask2 = idx.reshape(c, -1), mask.reshape(c, -1)
+    idx2 = idx.reshape(idx.shape[0], -1)
+    mask2 = mask.reshape(mask.shape[0], -1)
     if sub0 is None:
-        cur = torch.zeros(flags.shape, dtype=torch.int32, device=flags.device)
+        cur = torch.zeros((c,) + tuple(flags.shape[1:]), dtype=torch.int32,
+                          device=flags.device)
         fill = 0
     else:
         cur = sub0.clone()
@@ -140,40 +152,54 @@ def resident_solve(flags: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
     last_round = torch.zeros((c,), dtype=torch.int32, device=flags.device)
     local1 = torch.zeros((c,), dtype=torch.int32, device=flags.device)
     dst, src = adjacency
-    active = None  # round 1: every real tile
+    active = None  # round 1: every real tile this rank owns
     solved = []
     rnd = 1
     while rnd <= max_rounds:
         if active is None:
-            sel = slice(0, n)
-            ix, mk, fl = idx2[:n], mask2[:n], flags[:n]
+            sel = slice(lo, max(lo, min(hi, n)))
+            own = slice(sel.start - lo, sel.stop - lo)
         else:
-            sel = active
-            ix, mk, fl = idx2[active], mask2[active], flags[active]
+            sel, own = active, active - lo
+        ix, mk, fl = idx2[own], mask2[own], flags[own]
         m = fl.shape[0]
-        haloed = torch.where(mk, cur_flat.index_select(0, ix.reshape(-1))
-                             .reshape(m, -1), fill)
-        new, iters = solve_tiles_blockwise(haloed.reshape((m,) + halo_shape),
-                                           fl)
-        ch_t = (new != cur[sel]).reshape(m, -1).any(dim=1)
-        if rnd == 1:
-            local1[:n] = iters
-        cur[sel] = new
-        moved = torch.zeros((c,), dtype=torch.bool, device=flags.device)
-        moved[sel] = ch_t
+        if m:
+            haloed = torch.where(mk, cur_flat.index_select(0, ix.reshape(-1))
+                                 .reshape(m, -1), fill)
+            new, iters = solve_tiles_blockwise(
+                haloed.reshape((m,) + halo_shape), fl)
+            if rnd == 1:
+                local1[sel] = iters
+        if shard is None:
+            ch_t = (new != cur[sel]).reshape(m, -1).any(dim=1)
+            cur[sel] = new
+            moved = torch.zeros((c,), dtype=torch.bool, device=flags.device)
+            moved[sel] = ch_t
+        else:
+            block = cur[lo:hi].clone()
+            if m:
+                block[own] = new
+            whole = shard.gather(block)
+            moved = (whole != cur).reshape(c, -1).any(dim=1)
+            cur, cur_flat = whole, whole.reshape(-1)
         last_round = torch.where(moved, rnd, last_round)
         hits = torch.zeros((c,), dtype=torch.int32, device=flags.device)
         hits.index_add_(0, dst, moved[src].to(torch.int32))
         nxt = hits > 0
         solved.append(m)
-        n_moved, n_next = torch.stack([moved.sum(), nxt.sum()]).tolist()
+        n_moved, n_next, n_own = torch.stack(
+            [moved.sum(), nxt.sum(), nxt[lo:hi].sum()]).tolist()
         if not n_moved:
             break
         rnd += 1
         if not n_next:
             break
-        # the active tiles in index order (a stable sort puts them first)
-        active = torch.argsort((~nxt).to(torch.uint8), stable=True)[:n_next]
+        # the active tiles this rank owns, in index order (a stable sort
+        # puts them first)
+        active = lo + torch.argsort((~nxt[lo:hi]).to(torch.uint8),
+                                    stable=True)[:n_own]
+    if shard is not None:
+        local1 = shard.gather(local1[lo:hi])
     SOLVED_TILES.append(solved)
     return cur, local1, last_round, min(rnd, max_rounds)
 

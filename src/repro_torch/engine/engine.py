@@ -33,7 +33,7 @@ from ..core.quantize import abs_bound_from_mode, bin_dtype_for, check_bin_range,
 from ..tda.adaptive import ADAPTIVE_EB_MODES, ladder_indices
 from . import buckets
 from . import device as _device
-from .executor import DECODE_PATHS, default_executor
+from .executor import DECODE_PATHS, Executor, default_executor
 from .plan import (
     HALO,
     CompressionPlan,
@@ -63,12 +63,6 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (want cuda or cpu)")
     return dev
-
-
-def _not_in_slice(what: str, row: int, name: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md module queue row {row} "
-        f"({name}) brings it")
 
 
 def _check_decode_path(decode_path: str) -> None:
@@ -211,6 +205,12 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
     summary dict (``kind``/``dtype``/``tile``/``n_requests``/``n_tiles``
     and ``tile_batches``, the (real, capacity) device batches the group
     runs as): the hook the service reports occupancy through.
+    ``put`` places every upload of a fresh executor: a callable
+    ``np.ndarray -> torch.Tensor`` whose result must lie on ``device``
+    (an executor raises otherwise), or ``distributed.make_tile_put``'s
+    ``TilePut``, which also shards the device batches over its process
+    group (every rank calls with the same arguments and gets the same
+    blobs, equal to the unsharded ones).
 
     Returns a list of blobs, or (blobs, stats) when ``return_stats``.
     """
@@ -222,8 +222,6 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
     if adaptive_eb != "off" and not preserve_order:
         raise ValueError("adaptive_eb requires preserve_order=True (the "
                          "ladder exists to protect topology)")
-    if put is not None:
-        _not_in_slice("put", 13, "distributed")
     dev = resolve_device(device)
     plan = plan or DEFAULT_PLAN
     fields = list(fields)
@@ -234,7 +232,8 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
         raise ValueError("eb must be a scalar or one bound per field")
     reqs = [_Request(x, e, mode, plan, adaptive_eb, dev)
             for x, e in zip(fields, ebs)]
-    ex = default_executor(plan, dev, encode_path)
+    ex = (Executor(plan, dev, encode_path, put) if put is not None
+          else default_executor(plan, dev, encode_path))
 
     groups: dict[tuple, list[int]] = {}
     for i, r in enumerate(reqs):

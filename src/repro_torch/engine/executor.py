@@ -52,6 +52,17 @@ probe that shows a region read touches only its tiles).  Both are
 locked ``.add``, so concurrent services lose no update, and readers keep
 the ``Counter`` idioms (``[]``, ``dict()``, ``.clear()``).
 
+``put`` (``engine.compress_many``'s hook) places every upload of an
+executor built for it: a plain callable only places (its tensor must
+lie on the executor's device), while ``distributed.TilePut`` also
+shards: a resident batch whose capacity divides by its group's size
+runs as contiguous rank blocks (``_shard``; the block's tiles, eps and
+halo-table rows uploaded, the frontend and encodes run on the block,
+the streams' raw-size rows all-gathered before the download, the
+subbin width the group's maximum, ``device.resident_solve`` on a
+replicated state), and every rank downloads and serializes the same
+bytes.
+
 One ``Executor`` per (plan, device, encode path) is cached by
 ``default_executor`` and shared by every service worker that runs that
 configuration.  Sharing is safe: an executor holds only its immutable
@@ -177,15 +188,31 @@ class Executor:
     """
 
     def __init__(self, plan: CompressionPlan, device: torch.device,
-                 encode_path: str = "auto"):
+                 encode_path: str = "auto", put=None):
         if encode_path not in ENCODE_PATHS:
             raise ValueError(f"unknown encode path {encode_path!r}")
         self.plan = plan
         self.device = torch.device(device)
         self.encode_path = encode_path
+        self.put = put
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        if self.put is None:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        t = self.put(a)
+        if not (isinstance(t, torch.Tensor)
+                and _device_key(t.device) == _device_key(self.device)):
+            where = t.device if isinstance(t, torch.Tensor) else type(t)
+            raise ValueError(f"put placed an upload on {where}; the executor "
+                             f"runs on {self.device}")
+        return t
+
+    def _shard(self, capacity: int):
+        """This rank's block of a batch of ``capacity`` tiles when ``put``
+        shards batches (``distributed.TilePut``), else ``None``: the batch
+        runs whole."""
+        block = getattr(self.put, "block", None)
+        return None if block is None else block(capacity)
 
     # ------------------------------------------------------------ compress
 
@@ -239,6 +266,7 @@ class Executor:
                         and tdt == torch.float32)
         chunks = []
         resident = []
+        shards = []
         for lo, hi in batches:
             r0, r1 = int(offsets[lo]), int(offsets[hi])
             n_chunk = r1 - r0
@@ -249,6 +277,10 @@ class Executor:
                 xc = np.concatenate([
                     xc, np.full((pad,) + xc.shape[1:], np.nan, xc.dtype)])
                 ec = np.concatenate([ec, np.ones(pad, np.float64)])
+            # a sharded batch uploads only this rank's block of rows
+            shard = self._shard(capacity)
+            rows = slice(None) if shard is None else slice(shard.lo, shard.hi)
+            xc, ec = xc[rows], ec[rows]
             TRANSFER_COUNTS.add("h2d_tiles")
             TRANSFER_COUNTS.add("h2d_aux")
             TRANSFER_COUNTS.add("bytes_h2d", xc.nbytes + ec.nbytes)
@@ -258,6 +290,7 @@ class Executor:
                 tables = ()
                 if preserve_order:
                     idx, mask = halo.group_index(layouts[lo:hi], capacity)
+                    idx, mask = idx[rows], mask[rows]
                     adj = halo.group_adjacency(layouts[lo:hi])
                     TRANSFER_COUNTS.add("h2d_aux", 4)
                     TRANSFER_COUNTS.add("bytes_h2d", idx.nbytes + mask.nbytes
@@ -273,18 +306,23 @@ class Executor:
                     bins_chunk, preserve_order, adaptive, values_fused,
                     None if prev_bins is None else prev_bins[lo:hi],
                     resident if keep_bins else None, sizes[lo:hi],
-                    layout0)
+                    layout0, shard)
                 del x_dev, eps_dev, tables
                 if spans:
                     fence(chunk[2:])
             chunks.append(chunk)
+            shards.append(shard)
 
         subs_cpt = 0
         if preserve_order:
             # the width is picked from the *group* maximum so chunking
-            # never changes the subbin stream
+            # never changes the subbin stream; a sharded group's ranks each
+            # hold blocks, so the maximum is the group's over all ranks
             TRANSFER_COUNTS.add("d2h_aux", len(chunks))
             sub_top = max(device.sub_max(c[3]) for c in chunks)
+            sharded = next((sh for sh in shards if sh is not None), None)
+            if sharded is not None:
+                sub_top = sharded.all_reduce_max(sub_top)
             if sub_top < 2**15:
                 sub_store = np.dtype(np.int16)
             elif sub_top < 2**31:
@@ -296,10 +334,11 @@ class Executor:
             subs_cpt, subs_chunk = chunks_per_tile(layout0, sub_store)
             with stage("exec.encode", chunks=len(chunks), fused=fused,
                        sub_word=sub_store.itemsize):
-                for c in chunks:
-                    c[3] = device.encode_tiles(
-                        c[3].to(_TORCH_DTYPE[sub_store]).reshape(c[1], -1),
-                        subs_chunk, "raw")
+                for c, shard in zip(chunks, shards):
+                    c[3] = _gathered(shard, device.encode_tiles(
+                        c[3].to(_TORCH_DTYPE[sub_store]).reshape(
+                            c[3].shape[0], -1),
+                        subs_chunk, "raw"))
                 if spans:
                     fence([c[3] for c in chunks])
 
@@ -336,15 +375,24 @@ class Executor:
     def _solve_chunk(self, x_dev, eps_dev, tables, n_chunk: int,
                      capacity: int, tdt, bins_tdt, bins_chunk: int,
                      preserve_order: bool, adaptive: bool,
-                     values_fused: bool, prev, resident, sizes, layout0):
+                     values_fused: bool, prev, resident, sizes, layout0,
+                     shard=None):
         """One device batch's frontend, bins encode and halo-round solve
         -> [n_chunk, capacity, bins stream, subbins | None(, local
         sweeps, last round)].  ``prev`` holds a residual frame's previous
         bins per request, ``resident`` (a list) collects each request's
-        bins when a chain keeps them on the device."""
+        bins when a chain keeps them on the device.
+
+        With ``shard`` (this rank's block of a sharded batch) the tiles,
+        eps and halo-table rows are the block's: the frontend and the
+        encodes run on it, the streams come back gathered to the whole
+        batch's rows, and the subbins stay the block's (their encode
+        waits for the group's width)."""
+        b0, b1 = (0, capacity) if shard is None else (shard.lo, shard.hi)
         if values_fused:
-            return [n_chunk, capacity, device.resident_encode_fused(
-                x_dev, eps_dev, tdt, bins_tdt, bins_chunk), None]
+            return [n_chunk, capacity, _gathered(
+                shard, device.resident_encode_fused(
+                    x_dev, eps_dev, tdt, bins_tdt, bins_chunk)), None]
         if adaptive:
             bins_enc, s_init, flags = device.resident_frontend_adaptive(
                 x_dev, eps_dev, tdt)
@@ -357,34 +405,40 @@ class Executor:
             if capacity > n_chunk:
                 prev.append(bins_enc.new_zeros((capacity - n_chunk,)
                                                + layout0.tile))
-            stream = device.residual_tiles(bins_enc, torch.cat(prev))
+            stream = device.residual_tiles(bins_enc, torch.cat(prev)[b0:b1])
             transform = "zigzag"
         # a narrower store wraps, as the reference's astype does
-        bins_s = device.encode_tiles(
-            stream.to(bins_tdt).reshape(capacity, -1), bins_chunk, transform)
+        bins_s = _gathered(shard, device.encode_tiles(
+            stream.to(bins_tdt).reshape(b1 - b0, -1), bins_chunk, transform))
         if resident is not None:
-            resident.extend(torch.split(bins_enc[:n_chunk], sizes))
+            whole = bins_enc if shard is None else shard.gather(bins_enc)
+            resident.extend(torch.split(whole[:n_chunk], sizes))
         del bins_enc, stream
         if not preserve_order:
             return [n_chunk, capacity, bins_s, None]
         idx, mask, adj = tables
         max_rounds = n_chunk * layout0.tile_elems + 2
+        # only a sharded batch passes its block (spies of the one-device
+        # solve keep its signature)
+        sharded = {} if shard is None else {"shard": shard}
         if adaptive:
             s_final, local1, last_round, rounds = device.resident_solve(
                 flags, idx, mask, max_rounds=max_rounds, adjacency=adj,
-                sub0=s_init, n_real=n_chunk)
+                sub0=s_init if shard is None else shard.gather(s_init),
+                n_real=n_chunk, **sharded)
             # the stored subbin is the ordered distance climbed above the
             # bin base (0 at invalid cells, whose state never moves);
             # subtracting in the state's own width wraps as the
             # reference's unsigned subtraction does: no widening
-            sub = s_final - s_init
+            sub = s_final[b0:b1] - s_init
             del s_final, s_init
         else:
-            flags = device.resident_flags(bins_m, vals_m, capacity)
+            flags = device.resident_flags(bins_m, vals_m, b1 - b0)
             del bins_m, vals_m
             sub, local1, last_round, rounds = device.resident_solve(
                 flags, idx, mask, max_rounds=max_rounds, adjacency=adj,
-                n_real=n_chunk)
+                n_real=n_chunk, **sharded)
+            sub = sub[b0:b1]
         TRANSFER_COUNTS.add("d2h_round", rounds)
         return [n_chunk, capacity, bins_s, sub, local1, last_round]
 
@@ -470,6 +524,23 @@ class Executor:
             dl_sp.set_tag("nbytes", out_h.nbytes)
         TRANSFER_COUNTS.add("bytes_d2h", out_h.nbytes)
         return out_h[:n]
+
+
+def _device_key(d: torch.device) -> tuple:
+    """(type, index) of a device, a CUDA device without an index read as
+    the current one."""
+    if d.type == "cuda" and d.index is None:
+        return "cuda", torch.cuda.current_device()
+    return d.type, d.index
+
+
+def _gathered(shard, stream):
+    """A (bitmap, words, counts) stream of a rank's block rows -> the
+    whole batch's rows (every rank's blocks, in rank order); unchanged
+    when the batch is not sharded."""
+    if shard is None:
+        return stream
+    return tuple(shard.gather(a) for a in stream)
 
 
 def _fill_rows(bitmap: np.ndarray, packed: np.ndarray, section: bytes,

@@ -39,7 +39,6 @@ from ..engine import device as _device
 from ..engine.engine import (
     DEFAULT_PLAN,
     _check_eps,
-    _not_in_slice,
     _serialize_tile_sections,
     _store_bin_dtype,
     _validate,
@@ -52,6 +51,7 @@ from ..engine.executor import (
     _TORCH_DTYPE,
     CAPACITY_FLOOR,
     TRANSFER_COUNTS,
+    Executor,
     _fill_rows,
     default_executor,
     resident_capacity,
@@ -228,7 +228,10 @@ def compress_chains(
     time step and device group with the reference's summary dict
     (``kind="chain_step"``, ``t``, ``frame_kind``, ``dtype``, ``tile``,
     ``n_requests``, ``n_tiles``).  A chain step opens no stage spans, as
-    in the reference.
+    in the reference.  ``put`` is ``engine.compress_many``'s: a placing
+    callable, or ``distributed.make_tile_put``'s ``TilePut``, which
+    shards every frame step's batches (each rank keeps the whole batch's
+    bins resident, so a residual frame's predictor lines up).
 
     Returns a list of blobs, or (blobs, stats) when ``return_stats``.
     """
@@ -240,8 +243,6 @@ def compress_chains(
     if adaptive_eb != "off" and not preserve_order:
         raise ValueError("adaptive_eb requires preserve_order=True (the "
                          "ladder exists to protect topology)")
-    if put is not None:
-        _not_in_slice("put", 13, "distributed")
     dev = resolve_device(device)
     plan = plan or DEFAULT_PLAN
     chains = list(chains)
@@ -259,7 +260,8 @@ def compress_chains(
         intervals = [keyframe_interval] * len(chains)
     reqs = [_Chain(c, e, mode, plan, k, adaptive_eb, dev)
             for c, e, k in zip(chains, ebs, intervals)]
-    ex = default_executor(plan, dev, encode_path)
+    ex = (Executor(plan, dev, encode_path, put) if put is not None
+          else default_executor(plan, dev, encode_path))
 
     for t in range(max(r.n_frames for r in reqs)):
         groups: dict[tuple, list[_Chain]] = {}

@@ -335,8 +335,10 @@ def test_router_poison_isolation(clusters):
 
 
 def test_router_refuses_a_mesh_and_defaults_to_the_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="row 13"):
-        Router([object()], mesh=object(), device="cpu")
+    # a mesh is a torch DeviceMesh (the sharded path is
+    # tests/test_torch_distributed.py's); anything else is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        Router([object(), object()], mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Router([object(), object()])

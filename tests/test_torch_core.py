@@ -350,8 +350,14 @@ def test_arguments_outside_the_slice_name_their_roadmap_row():
     from repro_torch import engine
 
     x = np.linspace(0, 1, 64, dtype=np.float32).reshape(8, 8)
-    with pytest.raises(NotImplementedError, match="row 13"):
+    # put (row 13, distributed) is ported: a placing callable must put
+    # its tensor on the executor's device, and placement never changes
+    # the bytes
+    with pytest.raises(ValueError, match="put placed"):
         engine.compress_many([x], 1e-2, device="cpu", put=lambda a: a)
+    assert engine.compress_many([x], 1e-2, device="cpu",
+                                put=lambda a: torch.from_numpy(a)) == \
+        engine.compress_many([x], 1e-2, device="cpu")
     # group_cb (row 12, the serving stack) is ported: one dict per group
     infos = []
     engine.compress_many([x], 1e-2, device="cpu", group_cb=infos.append)

@@ -643,3 +643,80 @@ def test_cuda_cluster_reads_equal_a_single_store(dev, tmp_path):
     finally:
         single.close()
         cpu.close()
+
+
+def test_cuda_sharded_compress_over_nccl_equals_unsharded(dev, tmp_path):
+    """``compress_fields_sharded`` over an NCCL group of world size 1 (the
+    sharded solve's collectives on the card) and through a chain's
+    ``put``: the unsharded bytes."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import engine, temporal
+    from repro_torch.data.fields import make_field_sequence, make_scientific_field
+    from repro_torch.distributed import compress_fields_sharded, make_tile_put
+    from repro_torch.engine.plan import CompressionPlan
+
+    plan = CompressionPlan(tile_shape=(8, 8, 8), batch_tiles=12)
+    fields = [make_scientific_field("turbulence", (40, 36, 30),
+                                    np.dtype(np.float32), seed=1),
+              make_scientific_field("gaussians", (24, 20, 16),
+                                    np.dtype(np.float64), seed=5)]
+    frames = make_field_sequence("advect", "gaussians", (16, 12, 10), 2,
+                                 np.dtype(np.float32), seed=12)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "filestore"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        for kw in ({}, {"adaptive_eb": "tda"}, {"preserve_order": False}):
+            assert compress_fields_sharded(fields, 1e-2, mesh, plan=plan,
+                                           **kw) == \
+                engine.compress_many(fields, 1e-2, plan=plan, **kw)
+        assert temporal.compress_chains(
+            [frames], 1e-2, plan=plan, put=make_tile_put(mesh)) == \
+            temporal.compress_chains([frames], 1e-2, plan=plan)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cuda_baselines_equal_the_cpu_path(dev):
+    from repro_torch.codecs import baselines
+
+    x = np.random.default_rng(3).standard_normal((30, 40, 50)).astype(np.float32)
+    for name in ("pfpl_lite", "sz_lorenzo", "topoqz_lite"):
+        got = getattr(baselines, name)(x, 1e-2)
+        want = getattr(baselines, name)(x, 1e-2, device="cpu")
+        assert got.blob == want.blob and got.decoded.tobytes() == \
+            want.decoded.tobytes(), name
+    reset_launches()
+    blob = baselines.lossless_fp(x).blob
+    assert blob == baselines.lossless_fp(x, device="cpu").blob
+    assert baselines.lossless_fp_decode(blob).tobytes() == x.tobytes()
+    assert LAUNCHES["bitshuffle_u32"] and LAUNCHES["bitunshuffle_u32"] \
+        and LAUNCHES["rze_bitmap_u32"]
+
+
+def test_cuda_checkpoint_files_equal_the_cpu_path(dev, tmp_path):
+    from repro_torch.checkpoint import restore_tree, save_tree
+
+    rng = np.random.default_rng(4)
+    tree = {"w": torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32)),
+            "b": [torch.from_numpy(rng.standard_normal((2, 3, 16, 16))),
+                  torch.tensor(7, dtype=torch.int32)],
+            "bf": torch.from_numpy(rng.standard_normal((8, 8)).astype(
+                np.float32)).to(torch.bfloat16)}
+    for kw in ({"eb": 1e-3}, {}):
+        for d in ("cuda", "cpu"):
+            src = {k: (v.to(d) if isinstance(v, torch.Tensor) else
+                       [t.to(d) for t in v]) for k, v in tree.items()}
+            save_tree(src, tmp_path / f"{d}{len(kw)}", 0, device=d, **kw)
+        files = [{p.name: p.read_bytes() for p in sorted(
+            (tmp_path / f"{d}{len(kw)}" / "step_0").iterdir())}
+            for d in ("cuda", "cpu")]
+        assert files[0] == files[1]
+        got, _ = restore_tree(tree, tmp_path / f"cuda{len(kw)}")
+        want, _ = restore_tree(tree, tmp_path / f"cuda{len(kw)}", device="cpu")
+        for a, b in zip(got["b"] + [got["w"], got["bf"]],
+                        want["b"] + [want["w"], want["bf"]]):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))

@@ -268,8 +268,13 @@ def test_chain_arguments():
     with pytest.raises(ValueError, match="solver"):
         temporal.compress_chain([a], EB, solver="nope", device="cpu")
     assert temporal.compress_chains([], EB, device="cpu") == []
-    with pytest.raises(NotImplementedError, match="row 13"):
+    # put (row 13, distributed) is ported: the upload must be a tensor
+    # on the chain's device
+    with pytest.raises(ValueError, match="put placed"):
         temporal.compress_chains([[a]], EB, device="cpu", put=lambda x: x)
+    assert temporal.compress_chains([[a, a]], EB, device="cpu",
+                                    put=torch.from_numpy) == \
+        temporal.compress_chains([[a, a]], EB, device="cpu")
     # group_cb (row 12, the serving stack) is ported: one dict per step
     infos = []
     temporal.compress_chains([[a]], EB, device="cpu", group_cb=infos.append)
