@@ -176,6 +176,34 @@ Phases; any failure exits nonzero before the last line is printed:
    each codec's ratio beside LOPC's, with MB/s, the lossy ones within the
    bound, ``lossless_fp_decode`` exact, and each codec's blob on a cut
    equal to the CPU's.
+2k. LM serving (``repro_torch.models``, ``python -m
+   repro_torch.launch.serve --arch``).  (a) ``serve --arch qwen2.5-3b
+   --requests 4 --prompt-len 48 --gen 16`` at the published config (36
+   layers, d_model 2048, 16/2 heads, d_ff 11008, vocab 151936; 3.09 B f32
+   parameters from seed 0, bf16 compute), once plain and once with
+   ``--kv-quant``: finite logits of the right shapes; prefill seconds,
+   decode tok/s, the run's peak device memory (above what earlier phases
+   hold) and both runs' greedy tokens logged.
+   (b) The card against the CPU, the same torch code in f32 compute with
+   TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False`` for this
+   comparison only): qwen2.5-3b at full width cut to 2 layers (with and
+   without the int8 KV cache) and every other serving architecture at
+   ``reduced_for_smoke``; prefill logits and caches and 2 decode steps
+   (fed the CPU's greedy tokens), each case twice: with every cache
+   store in f32, within 1e-4 * max(1, max|cpu|) with equal greedy
+   tokens (the arithmetic alone); as served (bf16 K/V stores, or int8),
+   within the CPU tests' bf16 tolerance 3e-2 (int8: 1e-2) and int8 codes
+   one apart, since those stores turn the two matmuls' last-bit
+   differences into whole steps that later layers carry.  (c) KV
+   offload (``examples/serve_kv_compress_torch.py --full``): the full
+   qwen's prefill caches, 72 K and V blocks of (4, 2*64*128), through
+   ``CompressionService`` on the card at eb 1e-3 absolute on (16, 16, 64)
+   tiles, launches counted around the service's compress and decompress
+   ("kv C/D": kernels 1, 2 and 3 must launch); every block within the
+   bound and equal to ``core.decompress`` of its container; 4 blocks'
+   containers equal to the CPU's; the logit drift of 16 decode steps on
+   restored K logged, and a profile of one warm decode step (device busy
+   and idle share, top kernels, the host's shares).
 3. Width runs: the same entry points on full-size fields at bounds that
    reach the int32 and int64 bins widths (ISABEL's also on the plain
    path), on 1-D and 2-D fields whose tiles are the (1,1,4096) and
@@ -2188,6 +2216,290 @@ def distributed_phase(x, blob, y, info: dict, plain_ratio: float, miranda,
     return out
 
 
+# ---- 2k: LM serving
+LM_ARCH = "qwen2.5-3b"
+LM_SERVE = ("--arch", LM_ARCH, "--requests", "4", "--prompt-len", "48",
+            "--gen", "16")
+# the card against the CPU, f32 compute: with every cache store in f32,
+# the arithmetic alone (the matmuls' summation order) separates the two;
+# in the served form the bf16 (int8) K/V stores turn those last-bit
+# differences into whole bf16 steps (int8 codes) that later layers carry,
+# so it is held to the CPU tests' bf16 (int8) tolerances
+LM_RTOL = 1e-4
+LM_SERVED_RTOL = {"bf16": 3e-2, "int8": 1e-2}
+
+
+def lm_serve(card: str) -> dict:
+    """2k (a): ``serve --arch`` at the published size, plain and with the
+    int8 KV cache, through the CLI's entry point."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    runs = {}
+    for kvq in (False, True):
+        torch.cuda.empty_cache()
+        r = serve.main(list(LM_SERVE) + (["--kv-quant"] if kvq else []))
+        cfg = r["config"]
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+               cfg.vocab, cfg.kv_quant) == (36, 2048, 16, 2, 11008, 151936, kvq),
+              f"serve ran another config: {cfg}")
+        for name in ("prefill_logits", "last_logits"):
+            check(tuple(r[name].shape) == (4, 151936)
+                  and bool(torch.isfinite(r[name]).all()),
+                  f"serve {LM_ARCH} kv_quant={kvq}: {name} not finite (4, V)")
+        check(r["tokens"].shape == (17, 4), "serve gave another token count")
+        runs["int8-KV" if kvq else "plain"] = {
+            "prefill_s": r["prefill_s"], "decode_s": r["decode_s"],
+            "tok_s": r["tok_s"], "peak_GB": r["peak_bytes"] / 1e9,
+            "tokens": r["tokens"].T.tolist(), "logits": r["prefill_logits"]}
+    plain, int8 = (runs[k].pop("logits") for k in ("plain", "int8-KV"))
+    runs["prefill_logits_int8_vs_plain"] = float(
+        (plain - int8).abs().max()) / max(1.0, float(plain.abs().max()))
+    same = sum(a == b for a, b in zip(
+        np.ravel(runs["plain"]["tokens"]), np.ravel(runs["int8-KV"]["tokens"])))
+    for name in ("plain", "int8-KV"):
+        r = runs[name]
+        log(f"2k serve {LM_ARCH} [{name}] at full size: prefill 4x48 "
+            f"{r['prefill_s']:.3f} s, decode {r['tok_s']:.1f} tok/s "
+            f"({r['decode_s']:.3f} s for 64 tokens), peak "
+            f"{r['peak_GB']:.2f} GB; card {card}")
+    log("2k greedy tokens, plain | int8-KV, per request: " + "; ".join(
+        f"{a} | {b}" for a, b in zip(runs["plain"]["tokens"],
+                                     runs["int8-KV"]["tokens"]))
+        + f" ({same} of 68 equal); prefill logits int8-KV against plain "
+        f"{runs['prefill_logits_int8_vs_plain']:.3e} R")
+    runs["tokens_equal"] = int(same)
+    return runs
+
+
+def _cache_leaves(tree, prefix=""):
+    import numpy as np
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _cache_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _cache_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def lm_compare(ref_steps, got_steps, label: str, rtol: float,
+               tokens: bool) -> dict:
+    """Each step's logits and cache leaves of the card's run against the
+    CPU's within ``rtol * max(1, max|cpu|)`` (int8 codes: one code), and,
+    where ``tokens``, equal greedy tokens."""
+    import numpy as np
+
+    worst = {"logits": 0.0, "cache": 0.0, "int8_codes": 0, "tokens_equal": 0}
+    for step, ((lc, cc), (lg, cg)) in enumerate(zip(ref_steps, got_steps)):
+        err = float(np.abs(lc - lg).max()) / max(1.0, float(np.abs(lc).max()))
+        check(err <= rtol, f"2k {label} step {step}: logits differ by "
+                           f"{err:.3e} R")
+        worst["logits"] = max(worst["logits"], err)
+        same = int((lc.argmax(-1) == lg.argmax(-1)).sum())
+        check(not tokens or same == len(lc),
+              f"2k {label} step {step}: greedy tokens differ")
+        worst["tokens_equal"] += same
+        got = dict(_cache_leaves(cg))
+        for path, a in _cache_leaves(cc):
+            b = got[path]
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"2k {label}: {path} shapes or dtypes differ")
+            d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+            if a.dtype == np.int8:
+                check(d.max() <= 1, f"2k {label} step {step}: {path} int8 "
+                                    "codes differ by more than one")
+                worst["int8_codes"] = max(worst["int8_codes"], int((d > 0).sum()))
+                continue
+            err = float(d.max()) / max(1.0, float(np.abs(a).max()))
+            check(err <= rtol, f"2k {label} step {step}: {path} differs by "
+                               f"{err:.3e} R")
+            worst["cache"] = max(worst["cache"], err)
+    return worst
+
+
+def lm_agreement(card: str) -> dict:
+    """2k (b): the card against the CPU on the same torch code, f32
+    compute, TF32 off; each case twice: every cache store in f32 (the
+    arithmetic, ``LM_RTOL``, equal greedy tokens) and as served."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import ARCHITECTURES, get_arch, reduced_for_smoke
+    from repro_torch.models.convert import cache_to_reference
+    from repro_torch.models.inputs import dummy_batch
+    from repro_torch.models.model import Model
+
+    def f32_stores(model):
+        real = model.init_cache
+
+        def init_cache(batch, max_len):
+            def up(t):
+                if isinstance(t, dict):
+                    return {k: up(v) for k, v in t.items()}
+                if isinstance(t, list):
+                    return [up(v) for v in t]
+                return t.float() if isinstance(t, torch.Tensor) \
+                    and t.dtype == torch.bfloat16 else t
+            return up(real(batch, max_len))
+        model.init_cache = init_cache  # this instance only
+
+    def steps(model, cfg, batch, max_len, tokens=None):
+        logits, caches = model.prefill(batch, max_len)
+        out = [(logits.cpu().numpy(), cache_to_reference(caches, cfg))]
+        for t in range(2):
+            tok = (logits.argmax(-1).cpu() if tokens is None
+                   else torch.from_numpy(tokens[t]))
+            logits, caches = model.decode_step(tok, caches)
+            out.append((logits.cpu().numpy(), cache_to_reference(caches, cfg)))
+        return out
+
+    full = get_arch(LM_ARCH).config.scaled(n_layers=2, dtype="float32")
+    cases = [(f"{LM_ARCH} 2 layers", full, 4, 48),
+             (f"{LM_ARCH} 2 layers int8-KV", full.scaled(kv_quant=True), 4, 48)]
+    cases += [(f"{a} reduced", reduced_for_smoke(get_arch(a).config).scaled(
+        dtype="float32"), 2, 20) for a in ARCHITECTURES
+        if a != LM_ARCH and "decode_32k" not in get_arch(a).skip_shapes]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        with torch.inference_mode():
+            for label, cfg, b, s in cases:
+                t0 = time.perf_counter()
+                gpu = Model(cfg, seed=0, device="cuda")
+                cpu = copy.deepcopy(gpu).to("cpu")
+                batch = dummy_batch(cfg, b, s)
+                res = {}
+                forms = (("served", LM_SERVED_RTOL["int8" if cfg.kv_quant
+                                                   else "bf16"], False),)
+                if not cfg.kv_quant:  # int8 stores have no f32 form
+                    forms = (("f32 stores", LM_RTOL, True),) + forms
+                for form, rtol, tokens in forms:
+                    if form == "f32 stores":
+                        f32_stores(gpu)
+                        f32_stores(cpu)
+                    else:
+                        gpu.__dict__.pop("init_cache", None)
+                        cpu.__dict__.pop("init_cache", None)
+                    ref = steps(cpu, cfg, batch, s + 2)
+                    got = steps(gpu, cfg, batch, s + 2,
+                                [lc.argmax(-1) for lc, _ in ref])
+                    res[form] = lm_compare(ref, got, f"{label} ({form})", rtol,
+                                           tokens)
+                del gpu, cpu
+                res["s"] = time.perf_counter() - t0
+                out[label] = res
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    log("2k card against the CPU (f32 compute, TF32 off; max |d| / R of the "
+        "logits and caches, int8 codes off, greedy tokens equal of "
+        "3 steps): " + "; ".join(
+            f"{k}: " + ", ".join(
+                f"{form} {v[form]['logits']:.2e} / {v[form]['cache']:.2e}"
+                f" / {v[form]['int8_codes']} / {v[form]['tokens_equal']}"
+                for form in v if form != "s") + f" ({v['s']:.1f} s)"
+            for k, v in out.items()) + f"; card {card}")
+    return out
+
+
+def lm_offload(eng, kernels, launches: dict, card: str) -> dict:
+    """2k (c): the full qwen's prefill caches through the service on the
+    card (the KV example's own functions), launches counted around the
+    service's compress and decompress alone."""
+    import importlib.util
+
+    import torch
+
+    from repro_torch.engine.plan import CompressionPlan
+    from repro_torch.models import get_arch
+    from repro_torch.models.model import clone_cache
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_kv_compress_torch", ROOT / "examples" / "serve_kv_compress_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    cfg = get_arch(LM_ARCH).config
+    with torch.inference_mode():
+        model, logits, caches = ex.prefill(cfg, "cuda", 4, 48, 16)
+        blocks = ex.kv_blocks(caches, cfg)
+        check(len(blocks) == 72 and all(x.shape == (4, 2 * 64 * 128)
+                                        for x in blocks.values()),
+              "2k: the full qwen's KV blocks are not 72 of (4, 16384)")
+        offload_s = []
+        for rep in range(2):  # cold (new tile layouts), then warm
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payloads, restored, m = ex.offload(blocks, "cuda")
+            torch.cuda.synchronize()
+            offload_s.append(time.perf_counter() - t0)
+            if rep == 0:
+                launches["kv C/D"] = dict(kernels.LAUNCHES)
+        for k in ("solve_tiles_blockwise", "encode_ints_fused", "decode_tiles_fused"):
+            check(launches["kv C/D"].get(k, 0) > 0, f"{k} never launched on the "
+                                                    "KV offload path")
+        kerr = ex.check_offload(blocks, payloads, restored, "cuda")
+        plan = CompressionPlan(tile_shape=ex.TILE)
+        keys = list(blocks)[:2] + list(blocks)[-2:]
+        for key in keys:
+            check(payloads[key] == eng.compress(blocks[key], ex.EB, mode="abs",
+                                                plan=plan, device="cpu"),
+                  f"2k: KV block {key}'s container differs from the CPU's")
+        spare = clone_cache(caches)  # the prefill's state, for the profile
+        drift = ex.decode_drift(model, logits, caches,
+                                ex.restored_k(caches, restored, cfg), 16)
+        tok = logits.argmax(-1)
+        step = profile_calls({"decode step": lambda: model.decode_step(
+            tok, spare)}, host=("decode step",))["decode step"]
+        del model, caches, spare
+    torch.cuda.empty_cache()
+    raw = sum(x.nbytes for x in blocks.values())
+    comp = sum(len(b) for b in payloads.values())
+    out = {"blocks": len(blocks), "raw_MB": raw / 1e6, "stored_MB": comp / 1e6,
+           "ratio": raw / comp, "max_err": kerr, "offload_s": offload_s,
+           "MB_s": [2 * raw / 1e6 / t for t in offload_s],
+           "cpu_equal_blocks": len(keys),
+           "occupancy_mean": m.mean_batch_occupancy,
+           "device_groups": m.device_groups, "drift": drift["drift"],
+           "drift_tokens_equal": drift["same"], "decode_s": drift["s"],
+           "decode_step_profile": step}
+    log(f"2k KV offload: {len(blocks)} blocks, {raw / 1e6:.2f} MB -> "
+        f"{comp / 1e6:.2f} MB ({out['ratio']:.3f}x), max err {kerr:.3e} <= "
+        f"{ex.EB}; compress+decompress through the service cold "
+        f"{offload_s[0]:.3f} s, warm {offload_s[1]:.3f} s ({out['MB_s'][0]:.1f}"
+        f", {out['MB_s'][1]:.1f} MB/s of raw bytes each way), batch occupancy "
+        f"{m.mean_batch_occupancy:.1f}, {m.device_groups} device groups; "
+        f"{len(keys)} containers equal the CPU's; launches "
+        f"{launches['kv C/D']}; logit drift over 16 decode steps on restored K "
+        f"{drift['drift']:.4f}, argmax identical: {drift['same']}; card {card}")
+    busy = ("not measured (empty device trace)"
+            if step["device_busy_ms"] is None else
+            f"{step['device_busy_ms']:.2f} ms (idle share "
+            f"{step['device_idle_share']:.3f})")
+    log(f"2k profile of one warm decode step of the full qwen (4 requests): "
+        f"wall {step['wall_ms']:.2f} ms, device busy {busy}; top: "
+        + "; ".join(f"{t['kernel'][:40]} {t['ms']:.3f} ms x{t['calls']}"
+                    for t in step["top"][:6])
+        + "; host (cProfile cumulative share): " + "; ".join(
+            f"{h['function']} {h['share']:.2f}"
+            for h in step["host_cumulative_share"][:8]) + f"; card {card}")
+    return out
+
+
+def lm_phase(eng, kernels, launches: dict, card: str) -> dict:
+    """Phase 2k: serving at full size, the card against the CPU, and the
+    KV offload."""
+    return {"serve": lm_serve(card), "agreement": lm_agreement(card),
+            "offload": lm_offload(eng, kernels, launches, card)}
+
+
 # (tile-straddling box, box inside one (16, 16, 64) tile, one-cell slab)
 ROI_REGIONS = {
     "straddle": (slice(10, 40), slice(100, 170), slice(50, 200)),
@@ -3264,6 +3576,11 @@ def main() -> None:
         field(*MIRANDA[:2], np.dtype(MIRANDA[2]), seed=0), eng, kernels,
         launches, card)
     phase_done("2j distributed")
+
+    # ---- 2k. LM serving: qwen2.5-3b at full size, the card against the
+    # CPU, the KV offload through the service
+    lm = lm_phase(eng, kernels, launches, card)
+    phase_done("2k LM serving")
     log("launches by path: " + json.dumps(launches))
     log(json.dumps({"full_size": results, "launches_by_path": launches}))
     profiles = {f"{cell[0]}{kind}": profile(*cell, api, field, **kw)
@@ -3476,7 +3793,7 @@ def main() -> None:
         {"card": card, "build_s": build_s, "full_size": results,
          "ff32": ff32, "chains": chains, "profiles": profiles, "roi": roi,
          "serving": serving, "cluster": cluster, "distributed": distributed,
-         "phase_s": phase_s,
+         "lm": lm, "phase_s": phase_s,
          "launches_by_path": launches, "kernels": rows,
          "seconds": time.perf_counter() - T0}, indent=1))
     print(json.dumps({"kernels": rows}), flush=True)

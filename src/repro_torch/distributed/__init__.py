@@ -2,8 +2,8 @@
 ``repro.distributed``): the sharded tile path and gradient compression.
 
 The reference's package also re-exports its logical-axis sharding rules
-(``sharding.py``), which belong to the LM scaffold, ROADMAP.md module
-queue row 15; they are not part of the port yet.
+(``sharding.py``), which belong to the LM scaffold's distributed part,
+ROADMAP.md module queue row 15c; they are not part of the port yet.
 """
 from .compression import (
     TilePut,

@@ -1,6 +1,14 @@
-"""Serving launcher of the port: the LOPC compression service, the
-store behind it and the sharded store cluster (port of
-``repro.launch.serve``'s LOPC modes).
+"""Serving launcher of the port: LLM batched prefill and decode, the
+LOPC compression service, the store behind it and the sharded store
+cluster (port of ``repro.launch.serve``).
+
+LLM mode: one architecture's weights (random, from seed 0; ``--reduced``
+for the small same-family config) serve ``--requests`` prompts of
+``--prompt-len`` tokens, then decode ``--gen`` tokens greedily, with an
+int8 KV cache under ``--kv-quant``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+      --requests 4 --prompt-len 48 --gen 16 --kv-quant
 
 Compression-service mode: a pool of concurrent client threads fires
 mixed-shape compress/decompress/ROI requests and one temporal chain each
@@ -38,7 +46,7 @@ tracing into the worker subprocesses, whose spans ride home on the LPRC
 replies); ``--metrics-dump PATH`` (or ``-`` for stdout) writes the
 unified registry as Prometheus text exposition; ``--flight-dir DIR``
 makes failure flight dumps land as JSON files there (also exported to
-cluster workers).  The reference's LLM mode (``--arch``) is not ported.
+cluster workers).
 """
 from __future__ import annotations
 
@@ -475,12 +483,88 @@ def serve_cluster(args):
             shutil.rmtree(root, ignore_errors=True)
 
 
+def serve_llm(args) -> dict:
+    """Prefill ``args.requests`` prompts and decode ``args.gen`` tokens
+    greedily on ``args.device``; prints the reference's report line and
+    returns the logits, tokens, timings and the run's peak device memory
+    (above what was allocated before it)."""
+    import torch
+
+    from repro_torch.models import get_arch, reduced_for_smoke
+    from repro_torch.models.inputs import dummy_batch
+    from repro_torch.engine.engine import resolve_device
+    from repro_torch.models.model import Model
+
+    spec = get_arch(args.arch)
+    if "decode_32k" in spec.skip_shapes:
+        raise SystemExit(f"{args.arch} has no decode step "
+                         f"({spec.skip_shapes['decode_32k']})")
+    cfg = spec.config
+    if args.reduced:
+        cfg = reduced_for_smoke(cfg)
+    if args.kv_quant:
+        cfg = cfg.scaled(kv_quant=True)
+    dev = resolve_device(args.device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    with torch.inference_mode():
+        model = Model(cfg, seed=0, device=dev)
+        batch = dummy_batch(cfg, args.requests, args.prompt_len)
+        max_len = args.prompt_len + args.gen
+
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(batch, max_len)
+        sync()
+        t_prefill = time.perf_counter() - t0
+        first = logits.cpu()
+
+        tok = logits.argmax(-1)
+        outs = [tok]
+        t0 = time.perf_counter()
+        for _ in range(args.gen):
+            logits, caches = model.decode_step(tok, caches)
+            tok = logits.argmax(-1)
+            outs.append(tok)
+        sync()
+        t_dec = time.perf_counter() - t0
+        tokens = torch.stack(outs).cpu().numpy()
+        last = logits.cpu()
+    peak = torch.cuda.max_memory_allocated(dev) - base if cuda else None
+    del model, caches
+
+    total = args.gen * args.requests
+    print(f"{args.arch}{' [int8-KV]' if args.kv_quant else ''}: "
+          f"prefill {args.requests}x{args.prompt_len} in {t_prefill:.2f}s; "
+          f"decoded {total} tokens in {t_dec:.2f}s "
+          f"({total / t_dec:.1f} tok/s)")
+    print("sample:", [int(t[0]) for t in tokens][:12])
+    return {"config": cfg, "prefill_logits": first, "last_logits": last,
+            "tokens": tokens, "prefill_s": t_prefill, "decode_s": t_dec,
+            "tok_s": total / t_dec, "peak_bytes": peak}
+
+
 def main(argv=None):
+    from repro_torch.models.registry import ARCHITECTURES
+
     ap = argparse.ArgumentParser(
-        description="serve LOPC compression requests on the port")
-    ap.add_argument("--arch", default=None,
-                    help="the reference's LLM serving mode (not ported: "
-                         "ROADMAP.md module queue row 15)")
+        description="serve an LLM or LOPC compression requests on the port")
+    ap.add_argument("--arch", choices=ARCHITECTURES,
+                    help="LLM mode: architecture to serve")
+    ap.add_argument("--reduced", action="store_true",
+                    help="LLM mode: the small same-family config")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=48)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV cache (paper-technique quantization)")
     ap.add_argument("--compress-service", action="store_true",
                     help="serve concurrent LOPC compression requests "
                          "through the micro-batching service")
@@ -498,9 +582,10 @@ def main(argv=None):
                     help="store mode: directory to hold the store (default: "
                          "a fresh temp dir, removed after the run)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device the service and the store run on "
-                         "(cluster mode: the router and every worker; "
-                         "cuda; cpu runs the kernels' plain versions)")
+                    help="torch device the model, the service and the store "
+                         "run on (cluster mode: the router and every "
+                         "worker; cuda; cpu runs the kernels' plain "
+                         "versions)")
     ap.add_argument("--eb", type=float, default=1e-2,
                     help="compression service: NOA error bound")
     ap.add_argument("--tile", default="16,16,64",
@@ -555,9 +640,6 @@ def main(argv=None):
                          "points stay exactly preserved either way")
     args = ap.parse_args(argv)
 
-    if args.arch:
-        raise SystemExit("--arch (LLM serving) is not ported: ROADMAP.md "
-                         "module queue row 15 (the LM scaffold) decides it")
     _parse_tile(args.tile)  # a malformed --tile exits before any work
     _obs_configure(args)
     if args.cluster:
@@ -572,8 +654,10 @@ def main(argv=None):
         serve_compression(args)
         _obs_report(args, "compress-service")
         return
-    raise SystemExit("pass --compress-service, --store or --cluster N "
-                     "(--arch is not ported)")
+    if not args.arch:
+        raise SystemExit("--arch is required unless --compress-service, "
+                         "--store or --cluster is set")
+    return serve_llm(args)
 
 
 if __name__ == "__main__":

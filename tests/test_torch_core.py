@@ -285,6 +285,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.cluster.placement", "repro_torch.cluster.metrics",
             "repro_torch.cluster.worker",
             "repro_torch.cluster.router"} <= names
+    # and the LM serving path's
+    assert {"repro_torch.models.model", "repro_torch.models.convert",
+            "repro_torch.models.mamba2", "repro_torch.models.rwkv6",
+            "repro_torch.configs.qwen2_5_3b", "repro_torch.configs.lopc"} <= names
 
 
 def test_every_port_module_imports_first():

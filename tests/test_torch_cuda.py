@@ -720,3 +720,79 @@ def test_cuda_checkpoint_files_equal_the_cpu_path(dev, tmp_path):
                         want["b"] + [want["w"], want["bf"]]):
             assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(
                 a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def _f32_stores(tree):
+    if isinstance(tree, dict):
+        return {k: _f32_stores(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_f32_stores(v) for v in tree]
+    return tree.float() if isinstance(tree, torch.Tensor) \
+        and tree.dtype == torch.bfloat16 else tree
+
+
+def test_cuda_lm_serving_matches_the_cpu(dev):
+    """The reduced qwen2.5-3b on the card against the same torch code on
+    the CPU (f32 compute, TF32 off): prefill and 2 decode steps fed the
+    CPU's greedy tokens.  With every cache store in f32, logits and
+    caches within 1e-4 * R (R = max(1, max|cpu|)) and equal greedy
+    tokens; as served, with the bf16 K/V cache within 3e-2 * R, with the
+    int8 one logits within 1e-2 * R and codes at most one apart: those
+    stores turn the matmuls' last-bit differences into whole steps."""
+    from repro_torch.models import get_arch, reduced_for_smoke
+    from repro_torch.models.convert import cache_to_reference
+    from repro_torch.models.inputs import dummy_batch
+    from repro_torch.models.model import Model
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for kv_quant, f32, rtol in ((False, True, 1e-4), (False, False, 3e-2),
+                                    (True, False, 1e-2)):
+            cfg = reduced_for_smoke(get_arch("qwen2.5-3b").config).scaled(
+                dtype="float32", kv_quant=kv_quant)
+            cpu = Model(cfg, device="cpu")
+            gpu = Model(cfg, device=dev)
+            gpu.load_state_dict(cpu.state_dict())
+            batch = dummy_batch(cfg, 2, 20)
+            steps = []
+            for m in (cpu, gpu):
+                if f32:
+                    init = m.init_cache
+                    m.init_cache = lambda b, n, init=init: _f32_stores(init(b, n))
+                logits, caches = m.prefill(batch, 22)
+                out = [(logits.cpu().numpy(), cache_to_reference(caches, cfg))]
+                for t in range(2):
+                    tok = steps[0][t][0].argmax(-1) if steps else \
+                        logits.argmax(-1).cpu().numpy()
+                    logits, caches = m.decode_step(torch.from_numpy(tok), caches)
+                    out.append((logits.cpu().numpy(),
+                                cache_to_reference(caches, cfg)))
+                steps.append(out)
+            for (lc, cc), (lg, cg) in zip(*steps):
+                r = max(1.0, float(np.abs(lc).max()))
+                assert float(np.abs(lc - lg).max()) <= rtol * r
+                if f32:
+                    assert np.array_equal(lc.argmax(-1), lg.argmax(-1))
+                got = dict(_leaves(cg))
+                for path, a in _leaves(cc):
+                    b = got[path]
+                    assert a.shape == b.shape and a.dtype == b.dtype, path
+                    d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+                    if a.dtype == np.int8:
+                        assert d.max() <= 1, path
+                    else:
+                        assert d.max() <= rtol * max(1.0, float(np.abs(a).max())), path
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

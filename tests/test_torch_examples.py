@@ -36,6 +36,10 @@ def _run(script: str, *args: str) -> subprocess.CompletedProcess:
       "order violations = 0"]),
     ("scientific_pipeline_torch.py", ("--shape", "16,32,32", "--timesteps", "2"),
      ["t=0:", "t=1:", "(identical to the live field)", "archived"]),
+    # the reduced qwen2.5-3b's 2 layers: 4 K and V blocks through the service
+    ("serve_kv_compress_torch.py", (),
+     ["KV offload via service: 4 blocks,", "<= 0.001", "decoded 16 tokens x 4 reqs",
+      "max logit drift from compressed KV:"]),
 ])
 def test_example_runs_on_the_cpu(script, args, want):
     r = _run(script, "--device", "cpu", *args)
@@ -44,10 +48,13 @@ def test_example_runs_on_the_cpu(script, args, want):
         assert w in r.stdout, r.stdout
 
 
+SMALL = {"quickstart_torch.py": ("--shape", "8,8,8"),
+         "scientific_pipeline_torch.py": ("--shape", "8,8,8", "--timesteps", "1"),
+         "serve_kv_compress_torch.py": ()}
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
-@pytest.mark.parametrize("script", ["quickstart_torch.py",
-                                    "scientific_pipeline_torch.py"])
+@pytest.mark.parametrize("script", list(SMALL))
 def test_example_defaults_to_the_card(script):
-    r = _run(script, "--shape", "8,8,8", "--timesteps", "1") \
-        if "pipeline" in script else _run(script, "--shape", "8,8,8")
+    r = _run(script, *SMALL[script])
     assert r.returncode != 0 and "device='cpu'" in r.stderr

@@ -409,4 +409,4 @@ def test_serve_cli_refuses_cleanly():
     assert "--tile wants three positive ints" in bad.stderr
     out = _serve("--arch", "x", timeout=120)
     assert out.returncode != 0 and "Traceback" not in out.stderr
-    assert "row 15" in out.stderr
+    assert "invalid choice: 'x'" in out.stderr
