@@ -1,13 +1,13 @@
-"""The LM serving path as PyTorch modules (port of ``repro.models``).
+"""The LM path as PyTorch modules (port of ``repro.models``).
 
 The 10 assigned architectures, built from ``ModelConfig``: ``Model(cfg,
-device=...)`` holds one config's weights and serves through
-``prefill`` and ``decode_step``; ``convert`` carries the reference's
-parameter pytree and cache layout across.  All math uses explicit
-dtypes (bf16 compute, f32 accumulation), op for op as the reference.
-The reference's training path (``chunked_xent``, ``train_loss``) and its
-sharding rules are not ported yet (ROADMAP.md module queue rows 15b and
-15c).
+device=...)`` holds one config's weights, serves through ``prefill`` and
+``decode_step`` and trains through ``train_loss`` (autograd, with the
+reference's remat; ``repro_torch.runtime`` holds the train step);
+``convert`` carries the reference's parameter pytree, AdamW state and
+cache layout across.  All math uses explicit dtypes (bf16 compute, f32
+accumulation), op for op as the reference.  The reference's sharding
+rules are not ported yet (ROADMAP.md module queue row 15c).
 """
 from .config import ModelConfig, MoEConfig, reduced_for_smoke
 from .registry import ARCHITECTURES, get_arch

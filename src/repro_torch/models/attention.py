@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .common import dot_f32, scalar, softcap
+from .common import dot_f32, remat, scalar, softcap
 
 NEG_INF = -1e30
 
@@ -52,15 +52,13 @@ def blockwise_attention(
     m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=dev)
     l_sum = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
-    for blk in range(n_blocks):
-        sl = slice(blk * block_k, (blk + 1) * block_k)
-        kc, vc = k[:, :, sl], v[:, :, sl]
-        if k_scale is not None:  # int8 KV: dequantize the block
-            kc = (kc.float() * k_scale[:, :, sl]).to(qg.dtype)
-            vc = (vc.float() * v_scale[:, :, sl]).to(qg.dtype)
+
+    def body(m, l_sum, acc, kc, vc, ks, vs, k_pos):
+        if ks is not None:  # int8 KV: dequantize the block
+            kc = (kc.float() * ks).to(qg.dtype)
+            vc = (vc.float() * vs).to(qg.dtype)
         s = dot_f32(qg, kc.transpose(-1, -2)).reshape(b, hkv, g, sq, block_k)
         s = softcap(s, cap)
-        k_pos = k_start + blk * block_k + torch.arange(block_k, device=dev)
         mask = (k_pos >= 0)[None, :]  # ring caches: unfilled slots
         if causal:
             mask = mask & (q_pos[:, None] >= k_pos[None, :])
@@ -76,6 +74,17 @@ def blockwise_attention(
         # p in V's dtype for the PV product (f32 statistics kept)
         pv = dot_f32(p.to(vc.dtype).reshape(b, hkv, g * sq, block_k), vc)
         acc = acc * scale_old[..., None] + pv.reshape(b, hkv, g, sq, d)
-        m = m_new
+        return m_new, l_sum, acc
+
+    for blk in range(n_blocks):
+        sl = slice(blk * block_k, (blk + 1) * block_k)
+        k_pos = k_start + blk * block_k + torch.arange(block_k, device=dev)
+        # the block body is recomputed in the backward pass (the
+        # reference's checkpointed scan body): only one block's
+        # probabilities are live at a time
+        scales = ((None, None) if k_scale is None
+                  else (k_scale[:, :, sl], v_scale[:, :, sl]))
+        m, l_sum, acc = remat(body, m, l_sum, acc, k[:, :, sl], v[:, :, sl],
+                              *scales, k_pos)
     out = acc / torch.clamp_min(l_sum, 1e-30)[..., None]
     return out.reshape(b, hq, sq, d).to(q.dtype)

@@ -1,14 +1,21 @@
-"""Shared layer primitives: dtypes, norms, soft cap, RoPE, init, and the
-compute-dtype weight copies (port of ``repro.models.common``).
+"""Shared layer primitives: dtypes, norms, soft cap, RoPE, init, the
+compute-dtype weight copies and the chunked cross-entropy (port of
+``repro.models.common``).
 
 Every op follows the reference's rounding: a product of two bf16 values
 is exact in f32, so an f32 matmul of upcast bf16 operands is XLA's
 ``preferred_element_type=f32`` dot of the bf16 ones.
+
+Parameters are trainable (``requires_grad``): a forward with grad
+enabled builds the autograd graph through every weight, its
+compute-dtype copy included; a ``no_grad`` or ``inference_mode``
+forward (serving) reads the cached copy and records nothing.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -46,13 +53,18 @@ def scalar(value: float, dtype: torch.dtype) -> float:
 def cast_weight(module: torch.nn.Module, name: str,
                 dtype: torch.dtype) -> torch.Tensor:
     """``module.<name>`` in ``dtype``: the reference's ``w.astype(ct)`` at
-    every use, held once.  The copy is rebuilt when the parameter is
+    every use.  With grad enabled and a weight that requires it, the
+    cast is an op of the autograd graph (the gradient reaches the f32
+    master weight, as through the reference's ``astype``).  Otherwise
+    (serving) the copy is held once and rebuilt when the parameter is
     replaced or written in place (its storage or version changes; an
     inference tensor, made under ``torch.inference_mode``, has no
     version: its storage alone is checked)."""
     w = getattr(module, name)
     if w.dtype == dtype:
         return w
+    if w.requires_grad and torch.is_grad_enabled():
+        return w.to(dtype)
     cache = module.__dict__.setdefault("_cast", {})
     key = (name, dtype)
     stamp = (w.data_ptr(), None if w.is_inference() else w._version)
@@ -122,13 +134,10 @@ class Norm(torch.nn.Module):
         self.eps = cfg.norm_eps
         d = cfg.d_model
         if cfg.norm == "rmsnorm":
-            self.scale = torch.nn.Parameter(
-                torch.zeros(d, device=device), requires_grad=False)
+            self.scale = param(torch.zeros(d, device=device))
         else:
-            self.scale = torch.nn.Parameter(
-                torch.ones(d, device=device), requires_grad=False)
-            self.bias = torch.nn.Parameter(
-                torch.zeros(d, device=device), requires_grad=False)
+            self.scale = param(torch.ones(d, device=device))
+            self.bias = param(torch.zeros(d, device=device))
 
     def forward(self, x):
         if self.kind == "rmsnorm":
@@ -137,4 +146,48 @@ class Norm(torch.nn.Module):
 
 
 def param(t: torch.Tensor) -> torch.nn.Parameter:
-    return torch.nn.Parameter(t, requires_grad=False)
+    return torch.nn.Parameter(t)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass when
+    grad is enabled (the reference's ``jax.checkpoint``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+# ----------------------------------------------- chunked cross-entropy
+
+def chunked_xent(hidden, w_lm, labels, mask, chunk: int = 1024,
+                 final_cap: float | None = None) -> torch.Tensor:
+    """Causal-LM loss without ever holding (T, vocab) logits of more than
+    one chunk.
+
+    hidden: (B, S, d) in the compute dtype; w_lm: (d, V); labels/mask:
+    (B, S).  Each chunk of the sequence computes f32 logits from the
+    compute-dtype operands, the soft cap, ``logsumexp`` and the gathered
+    label logit, and is recomputed in the backward pass (the reference's
+    ``jax.checkpoint`` scan body).  Returns the masked mean (f32 0-d).
+    """
+    b, s, d = hidden.shape
+    n_chunks = s // chunk if s % chunk == 0 else 1
+    if s % chunk != 0:
+        chunk = s
+    w = w_lm.to(hidden.dtype)
+
+    def body(hc, wc, yc, mc):
+        logits = softcap(dot_f32(hc, wc), final_cap)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, yc[..., None].long())[..., 0]
+        nll = (lse - ll) * mc
+        return nll.sum(dtype=torch.float32), mc.sum(dtype=torch.float32)
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        t, n = remat(body, hidden[:, sl], w, labels[:, sl], mask[:, sl])
+        tot = tot + t
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,6 +1,7 @@
 """Model assembly: embeddings -> blocks -> head, with the serving caches
-(port of ``repro.models.model``'s ``init_params``, ``init_cache``,
-``prefill`` and ``decode_step``).
+and the training loss (port of ``repro.models.model``'s
+``init_params``, ``init_cache``, ``prefill``, ``decode_step`` and
+``train_loss``).
 
 ``cfg.pattern`` is one *group* of block kinds, repeated ``n_layers //
 len(pattern)`` times; the ``n_layers % len(pattern)`` leftover blocks
@@ -25,9 +26,11 @@ from .common import (
     Norm,
     cast_weight,
     cdtype,
+    chunked_xent,
     normal_init,
     param,
     pdtype,
+    remat,
     scalar,
     softcap,
 )
@@ -98,7 +101,7 @@ def block_cache(cfg, kind, batch, max_len, device) -> dict:
 class Model(torch.nn.Module):
     """One architecture config's weights (f32 by default, made from
     ``seed`` through a ``torch.Generator`` on ``device``), served through
-    ``prefill`` and ``decode_step``."""
+    ``prefill`` and ``decode_step`` and trained through ``train_loss``."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         super().__init__()
@@ -154,47 +157,96 @@ class Model(torch.nn.Module):
 
     def forward_hidden(self, h, caches=None, q_offset: int = 0):
         """h: (B, S, d) embedded inputs. Returns (hidden, aux); the caches
-        are updated in place."""
+        are updated in place.  With grad enabled and no caches, each
+        pattern group (zamba2's shared block included) is recomputed in
+        the backward pass: the reference's ``jax.checkpoint`` of its
+        scanned group body; the tail blocks are not."""
         cfg = self.cfg
         period = len(cfg.pattern)
-        grouped = (cfg.n_layers // period) * period
+        n_groups = cfg.n_layers // period
         shared = has_shared(cfg)
-        aux = 0.0
-        for i, block in enumerate(self.layers):
-            if shared and i < grouped and i % period == 0:
+
+        def group(g, h):
+            aux = 0.0  # a tensor once an MoE block adds its loss
+            if shared:
                 h = self._apply_shared(
-                    h, None if caches is None else caches["shared"][i // period],
+                    h, None if caches is None else caches["shared"][g],
                     q_offset)
-            h, a = block(h, None if caches is None else caches["layers"][i],
-                         q_offset)
+            for i in range(g * period, (g + 1) * period):
+                h, a = self.layers[i](
+                    h, None if caches is None else caches["layers"][i],
+                    q_offset)
+                aux = aux + a
+            return h, aux
+
+        aux = 0.0
+        for g in range(n_groups):
+            h, a = (remat(group, g, h) if caches is None else group(g, h))
+            aux = aux + a
+        for i in range(n_groups * period, cfg.n_layers):
+            h, a = self.layers[i](
+                h, None if caches is None else caches["layers"][i], q_offset)
             aux = aux + a
         if caches is not None:
             caches["len"] += h.shape[1]
         return self.final_norm(h), aux
 
     def embed_inputs(self, batch: dict) -> torch.Tensor:
+        """The batch's (torch or numpy) inputs embedded in the compute
+        dtype, on the model's device."""
         cfg, dev = self.cfg, self.device
         ct = cdtype(cfg)
+
+        def get(k):
+            return torch.as_tensor(batch[k]).to(dev)
+
         if cfg.input_kind == "frames":
-            h = batch["frames"].to(dev).to(ct)
+            h = get("frames").to(ct)
         elif cfg.input_kind == "tokens+image":
-            img = (batch["image_embeds"].to(dev).to(ct)
-                   @ cast_weight(self, "img_proj", ct))
-            tok = cast_weight(self, "embed", ct)[batch["tokens"].to(dev).long()]
+            img = get("image_embeds").to(ct) @ cast_weight(self, "img_proj", ct)
+            tok = cast_weight(self, "embed", ct)[get("tokens").long()]
             h = torch.cat([img, tok], dim=1)
         else:
-            h = cast_weight(self, "embed", ct)[batch["tokens"].to(dev).long()]
+            h = cast_weight(self, "embed", ct)[get("tokens").long()]
         return h * scalar(cfg.embed_scale, ct)
 
-    def lm_head_weight(self) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            return self.embed.T
-        return self.lm_head
+    def lm_head_weight(self, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """The (d, V) head: the tied embedding's transpose or ``lm_head``,
+        in ``dtype`` if given (``cast_weight``)."""
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        w = getattr(self, name) if dtype is None else cast_weight(self, name, dtype)
+        return w.T if self.cfg.tie_embeddings else w
 
     def _logits(self, h_last):
         """The head in f32, then the final soft cap."""
         logits = h_last.float() @ self.lm_head_weight().float()
         return softcap(logits, self.cfg.final_softcap)
+
+    def train_loss(self, batch: dict):
+        """Returns (loss, metrics): the masked mean cross-entropy of
+        ``batch["labels"][t]`` predicted from the hidden state at ``t``
+        (llava: the text tail only), plus, for MoE, ``aux_loss_weight``
+        times the load-balance loss.  ``metrics`` holds ``xent`` (and
+        ``moe_aux``) as 0-d f32 tensors.  Run it with grad enabled to
+        train: the groups and the loss chunks are recomputed in the
+        backward pass."""
+        cfg, dev = self.cfg, self.device
+        ct = cdtype(cfg)
+        h, aux = self.forward_hidden(self.embed_inputs(batch))
+        labels = torch.as_tensor(batch["labels"]).to(dev)
+        mask = batch.get("mask")
+        mask = (torch.ones(labels.shape, device=dev) if mask is None
+                else torch.as_tensor(mask).to(dev).float())
+        if cfg.input_kind == "tokens+image":
+            # hidden holds the image positions first; loss on the text tail
+            h = h[:, -labels.shape[1]:]
+        xe = chunked_xent(h, self.lm_head_weight(ct), labels, mask,
+                          final_cap=cfg.final_softcap)
+        loss, metrics = xe, {"xent": xe}
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_loss_weight * aux
+            metrics["moe_aux"] = aux
+        return loss, metrics
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int):
@@ -211,7 +263,8 @@ class Model(torch.nn.Module):
         advance in place (and are returned)."""
         cfg, dev = self.cfg, self.device
         ct = cdtype(cfg)
-        h = cast_weight(self, "embed", ct)[token.to(dev).long()][:, None]
+        h = cast_weight(self, "embed", ct)[
+            torch.as_tensor(token).to(dev).long()][:, None]
         h = h * scalar(cfg.embed_scale, ct)
         h, _ = self.forward_hidden(h, caches, q_offset=caches["len"])
         return self._logits(h[:, 0]), caches

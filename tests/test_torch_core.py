@@ -289,6 +289,11 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.models.model", "repro_torch.models.convert",
             "repro_torch.models.mamba2", "repro_torch.models.rwkv6",
             "repro_torch.configs.qwen2_5_3b", "repro_torch.configs.lopc"} <= names
+    # and the LM training path's
+    assert {"repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.schedules", "repro_torch.runtime",
+            "repro_torch.runtime.steps", "repro_torch.runtime.trainer",
+            "repro_torch.data.pipeline", "repro_torch.launch.train"} <= names
 
 
 def test_every_port_module_imports_first():

@@ -796,3 +796,124 @@ def test_cuda_lm_serving_matches_the_cpu(dev):
                         assert d.max() <= rtol * max(1.0, float(np.abs(a).max())), path
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def train_step(model, cfg, batch):
+    """One ``make_train_step`` from a fresh AdamW state: (metrics, grads
+    and new weights on the CPU, the step's seconds with its gradients'
+    download).  ``chip_smoke.py`` phase 2l (b) runs it too."""
+    import time
+
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_train_step
+
+    grads = {}
+
+    def capture(g, opt):
+        grads.update({k: v.detach().cpu() for k, v in g.items()})
+        return g, opt
+
+    opt = adamw.adamw_init(dict(model.named_parameters()))
+    step = make_train_step(cfg, grad_transform=capture, base_lr=1e-3,
+                           total_steps=20)
+    t0 = time.perf_counter()
+    _, _, met = step(model, opt, batch)
+    met = {k: float(v) for k, v in met.items()}
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (met, grads,
+            {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            seconds)
+
+
+def first_step_tol(g, lr: float, rtol: float, eps: float = 1e-8):
+    """Per element, how far two devices' first AdamW steps may part when
+    their (clipped) gradients ``g`` agree within ``rtol * max|g|``: the
+    step is ``lr * g / (|g| + eps)``, whose slope in ``g`` is ``eps /
+    (|g| + eps)**2``; a gradient within that tolerance of zero has its
+    sign set by the two devices' roundings and may step either way (2
+    lr)."""
+    g = g.abs()
+    delta = 2 * rtol * float(g.max())  # the gradients' and the clip's
+    near = torch.clamp(g - delta, min=0.0)
+    return torch.where(g <= delta, 2 * lr, lr * delta * eps / (near + eps) ** 2)
+
+
+def test_cuda_lm_train_step_matches_the_cpu(dev):
+    """One train step of the reduced qwen2.5-3b on the card against the
+    same torch code on the CPU, from the same weights and batch (TF32
+    off): in f32 compute the loss, grad norm, every gradient leaf and the
+    updated weights within 1e-4 of each leaf's largest CPU value; in bf16
+    compute within 3e-2.  A weight's step may also part by the slope of
+    AdamW's first step ``lr * g / (|g| + eps)`` times the gradients'
+    tolerance, and by 2 lr where that tolerance sets the gradient's
+    sign (the K bias's gradient, which the softmax nearly cancels)."""
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.models import get_arch, reduced_for_smoke
+    from repro_torch.models.model import Model
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dtype, rtol in (("float32", 1e-4), ("bfloat16", 3e-2)):
+            cfg = reduced_for_smoke(get_arch("qwen2.5-3b").config).scaled(
+                dtype=dtype)
+            cpu = Model(cfg, device="cpu")
+            gpu = Model(cfg, device=dev)
+            gpu.load_state_dict(cpu.state_dict())
+            batch = SyntheticLMStream(cfg, 2, 32).batch_at(0)
+            mc, gc, pc, _ = train_step(cpu, cfg, batch)
+            mg, gg, pg, _ = train_step(gpu, cfg, batch)
+            for k, v in mc.items():
+                assert abs(mg[k] - v) <= rtol * max(1.0, abs(v)), k
+            for k, g in gc.items():
+                assert float((g - gg[k]).abs().max()) <= \
+                    rtol * float(g.abs().max()), k
+            scale = min(1.0, 1.0 / max(mc["grad_norm"], 1e-9))
+            for k, p in pc.items():
+                d = (p - pg[k]).double().abs()
+                tol = first_step_tol(gc[k] * scale, mc["lr"], rtol)
+                assert bool((d <= tol + rtol * float(p.abs().max())).all()), k
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_cuda_trainer_checkpoints_launch_kernels_8_and_9(dev, tmp_path):
+    """The ``Trainer``'s lossless checkpoints on the card: every save
+    launches the BIT_4 transpose and the RZE bitmap on each lossless
+    leaf, the restore the transpose's inverse, and the restored tree
+    equals the saved one bit for bit."""
+    from repro_torch.checkpoint.manager import restore_tree
+    from repro_torch.models import get_arch, reduced_for_smoke
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = reduced_for_smoke(get_arch("qwen2.5-3b").config)
+    tc = TrainerConfig(total_steps=2, ckpt_every=1, ckpt_dir=str(tmp_path),
+                       global_batch=2, seq_len=16)
+    reset_launches()
+    t = Trainer(cfg, tc, device=dev)
+    model, opt = t.run(0)
+    lossless = sum(leaf["codec"] == "lopc-lossless"
+                   for leaf in t.ckpt.last_manifest["leaves"])
+    saves = dict(LAUNCHES)
+    assert lossless > 0
+    assert saves.get("bitshuffle_u32", 0) == 2 * lossless
+    assert saves.get("rze_bitmap_u32", 0) == 2 * lossless
+    reset_launches()
+    want = t.checkpoint_tree(model, opt)
+    got, step = restore_tree(want, tmp_path, device=dev)
+    assert step == 1 and dict(LAUNCHES).get("bitunshuffle_u32", 0) == lossless
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k])
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from leaves(v)
+        else:
+            yield tree
+
+    for a, b in zip(leaves(want), leaves(got)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
