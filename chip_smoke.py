@@ -16,9 +16,9 @@ Phases; any failure exits nonzero before the last line is printed:
    after; each path must have launched its kernels (compress: solve and
    encode; decompress: decode).  Checks the point-wise bound and that the
    decoded field keeps the strict SoS order of the input on every
-   Freudenthal pair.  Then times a warm compress and decompress (median
-   of 2) and profiles one of each (device time by kernel, the device's
-   idle share).
+   Freudenthal pair.  Then times a warm compress and decompress (one
+   pass each, as the run's time limit allows) and profiles one of each of ISABEL's (device time by kernel, the
+   device's idle share).
    Independent checks of the same runs: the decoded values must equal,
    bit for bit, a whole-field reconstruction on the card that bypasses
    tiling, halo rounds, capacity batches, the streams and the container
@@ -39,7 +39,7 @@ Phases; any failure exits nonzero before the last line is printed:
    bit-equal to a whole-field plain reconstruction on the card
    (``quantize_broadcast`` then ``decode_base`` on the untiled field),
    and ISABEL's plain container byte-equal to the CPU path's.  Times a
-   warm compress and decompress (median of 2) and profiles one of each
+   warm compress and decompress (one pass each) and profiles one of each
    (ISABEL's only).
 2d. The whole-field (v1) compressor at full size: the same two fields
    through ``repro_torch.core.compress(x, 1e-2, container_version=1)``
@@ -55,7 +55,7 @@ Phases; any failure exits nonzero before the last line is printed:
    decodes the v1 container to the same bits, and that ISABEL's v1
    sections, decoded and encoded again on the CPU with the plain
    versions, are the same bytes.  Times a warm compress and decompress
-   (median of 2) and profiles one of each (ISABEL's only).
+   (one pass each) and profiles one of each (ISABEL's only).
 2c. Region reads: on the order-preserving container of each field and
    on ISABEL's plain one, ``decompress_roi`` of a box that straddles
    tile boundaries on every axis, a box inside one tile and a one-cell
@@ -80,7 +80,7 @@ Phases; any failure exits nonzero before the last line is printed:
    rows) compressed adaptively on the card and on the CPU must give the
    same bytes, and the full container must decode on the CPU to the
    card's bits; so must Miranda's 16-row cut at eb 1e-2, uniform and
-   adaptive (its real stream widths and the 64-bit lane).  Times a warm compress and decompress (median of 2) and
+   adaptive (its real stream widths and the 64-bit lane).  Times a warm compress and decompress (one pass each) and
    profiles one of each (ISABEL's at eb 1e-2).
 2f. The FF32 contract at full size: ISABEL at eps =
    ``effective_eps(1e-2 * range)``: ``ff32_domain_ok``, then
@@ -89,10 +89,10 @@ Phases; any failure exits nonzero before the last line is printed:
    the FF32 quantize and dequantize kernels; checks the bound, the local
    order and the critical points.
 2g. Temporal chains at full size, through ``repro_torch.temporal``:
-   isabel-f32-chain (6 ISABEL-shaped frames, turbulence advected, eb 1e-2
-   NOA, keyframe interval 4: frames K R R R K R), miranda-f64-chain (4
-   Miranda-shaped frames, gaussians diffused, interval 3) and
-   isabel-f32-chain-adaptive (isabel's first 4 frames, interval 3,
+   isabel-f32-chain (4 ISABEL-shaped frames, turbulence advected, eb 1e-2
+   NOA, keyframe interval 3: frames K R R K), miranda-f64-chain (3
+   Miranda-shaped frames, gaussians diffused, interval 2: K R K) and
+   isabel-f32-chain-adaptive (isabel's first 3 frames, interval 2,
    ``adaptive_eb="tda"``: the chain-wide ladder and the 32-bit ordered
    lane).  Frames are ``data.fields.make_field_sequence``'s, the base
    spectrum taken once per chain.  Launches are counted per path: the
@@ -110,8 +110,8 @@ Phases; any failure exits nonzero before the last line is printed:
    (one residual frame, one keyframe).  A cut of isabel's chain (4
    frames, interval 3, 16x256x256), uniform and adaptive, must give the
    CPU's bytes and decode.  Times one warm compress and decompress (raw
-   MB of all frames), profiles one of each of the ISABEL chains (the
-   host's shares of the first one's compress), and times the chain decode's torch stages
+   MB of all frames), profiles one of each of the first chain (and the
+   host's shares of its compress), and times the chain decode's torch stages
    on one frame beside kernel 3.
 2h. The serving stack at full size (``repro_torch.store``,
    ``repro_torch.service``, ``repro_torch.obs``), launches counted per
@@ -232,6 +232,28 @@ Phases; any failure exits nonzero before the last line is printed:
    one save's and restore's MB/s are logged; ``python -m repro_torch.launch.train --arch qwen2.5-3b
    --reduced --steps 6`` runs as a subprocess and prints its report
    line.
+2m. The LM's distributed part (``distributed.sharding``,
+   ``launch.shardings``, ``models.parallel``, the MoE's EP and XP
+   regions, ``launch.dryrun``, ``launch.cost``).  (a) Rank 0's program of
+   mixtral-8x22b train_4k on the single (16, 16) mesh (XP mode: 8
+   experts on a 16-wide axis), in a subprocess with a fake group of 256
+   ranks: the cell placed by ``launch.shardings`` with only rank 0's
+   blocks drawn on the card (never the 141 B parameters), one cold train
+   step (its ops counted by ``launch.cost``: the dry run's accounting)
+   and one warm; the local shapes must equal the dry run's placement on
+   ``meta``, both steps must finish; peak memory is logged beside the
+   dry run's per-device argument bytes, the warm step's seconds beside
+   its compute, memory and collective terms.  The fake group's
+   collectives move nothing, so values are not checked.  (b)
+   mixtral-8x22b's MoE block at its published width (8 experts, d 6144 x
+   d_ff 16384) in EP mode on 2 gloo ranks (subprocesses,
+   ``tests/torch_moe_ep_rank.py``) on the card, mesh data 1 x model 2:
+   with f32 compute and 1 x 8 tokens (no expert overflows in either
+   layout) the ranks' outputs must equal the world-1 ``local_moe``
+   within 1e-5 of its max|out|, and the aux within 1e-6 the world-1
+   block's on each rank's tokens, averaged; with bf16 and 4
+   x 48 tokens the block's warm wall time, one ``all_to_all``'s time and
+   ``_collectives.COUNTS`` are logged.
 3. Width runs: the same entry points on full-size fields at bounds that
    reach the int32 and int64 bins widths (ISABEL's also on the plain
    path), on 1-D and 2-D fields whose tiles are the (1,1,4096) and
@@ -1052,12 +1074,14 @@ def ff32_path(name, shape, dtype, ops, subbin, quantize, tda, kernels,
 # ---- 2g: temporal chains
 #
 # (cell, evolution, base, shape, dtype, frames, keyframe interval,
-# compress keywords): isabel's frames run K R R R K R, miranda's K R R K;
-# the adaptive cell takes isabel's first 4 frames
+# compress keywords): isabel's frames run K R R K, miranda's and the
+# adaptive cell's (isabel's first 3 frames) K R K: both frame kinds and a
+# keyframe after a residual frame in each, at the least depth that has
+# them (the run's time limit)
 CHAIN_CELLS = (
-    ("isabel-f32-chain", "advect", *ISABEL, 6, 4, {}),
-    ("miranda-f64-chain", "diffuse", *MIRANDA, 4, 3, {}),
-    ("isabel-f32-chain-adaptive", "advect", *ISABEL, 4, 3,
+    ("isabel-f32-chain", "advect", *ISABEL, 4, 3, {}),
+    ("miranda-f64-chain", "diffuse", *MIRANDA, 3, 2, {}),
+    ("isabel-f32-chain-adaptive", "advect", *ISABEL, 3, 2,
      {"adaptive_eb": "tda"}),
 )
 # the isabel chain's cut compressed on the card and on the CPU: its first
@@ -2884,6 +2908,160 @@ ROI_REGIONS = {
 }
 
 
+# ---- 2m: the LM's distributed part
+
+# mixtral-8x22b train_4k on the single (16, 16) mesh: 8 experts on a
+# 16-wide axis is the MoE's XP mode
+LM_DRY_CELL = ("mixtral-8x22b", "train_4k")
+LM_DRY_RANK0 = """
+import json, sys, time
+import torch
+from repro_torch.launch import dryrun
+from repro_torch.launch.cost import CostCounter
+arch, shape, out = sys.argv[1], sys.argv[2], sys.argv[3]
+dryrun.init_fake_group(256)
+res = {}
+# the dry run's placement on meta: the shapes and bytes rank 0 holds
+meta = dryrun.build_cell(arch, shape, False)
+want = {n: tuple(p.to_local().shape) for n, p in meta["model"].named_parameters()}
+res["dry_bytes"] = dryrun.cell_bytes(meta)
+del meta
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+built = dryrun.build_cell(arch, shape, False, device_type="cuda",
+                          materialize="cuda")
+torch.cuda.synchronize()
+res["build_s"] = time.perf_counter() - t0
+got = {n: tuple(p.to_local().shape) for n, p in built["model"].named_parameters()}
+res["n_leaves"] = len(got)
+res["shapes_equal"] = got == want
+res["bytes"] = dryrun.cell_bytes(built)
+res["local_params"] = sum(p.to_local().numel() for p in built["model"].parameters())
+res["steps_s"] = []
+for rep in range(2):  # cold (its ops counted: the dry run's accounting), warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if rep == 0:
+        with CostCounter() as counter:
+            dryrun.run_step(built)
+    else:
+        dryrun.run_step(built)
+    torch.cuda.synchronize()
+    res["steps_s"].append(time.perf_counter() - t0)
+res["cost"] = counter.summary()
+res["roofline"], res["dominant"] = dryrun.roofline(res["cost"])
+res["peak_bytes"] = torch.cuda.max_memory_allocated()
+res["step"] = int(built["opt"]["step"])
+open(out, "w").write(json.dumps(res))
+"""
+LM_EP_WIDTH = (6144, 16384)   # mixtral-8x22b's published d_model, d_ff
+LM_EP_RTOL = 1e-5
+
+
+def lm_sharded_rank0(root: Path, card: str) -> dict:
+    """Phase 2m (a): rank 0's program of the production layout, in a
+    subprocess with a fake group of 256 ranks on the one card: the cell
+    placed by ``launch.shardings`` with only rank 0's blocks on the card,
+    one cold and one warm train step.  The fake group's collectives move
+    nothing, so values are not checked; the local shapes must equal the
+    dry run's placement on ``meta``."""
+    out = root / "rank0.json"
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", LM_DRY_RANK0, *LM_DRY_CELL,
+                        str(out)], capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(SRC)))
+    check(p.returncode == 0, f"2m (a) failed: {p.stderr[-3000:]}")
+    res = json.loads(out.read_text())
+    res["process_s"] = time.perf_counter() - t0
+    check(res["shapes_equal"], "2m (a): rank 0's local shards differ from the "
+                               "dry run's")
+    check(len(res["steps_s"]) == 2 and res["step"] == 2,
+          "2m (a): the train steps did not finish")
+    cost, terms = res["cost"], res["roofline"]
+    log(f"2m (a) {'/'.join(LM_DRY_CELL)} rank 0 of 256: {res['local_params']} "
+        f"local parameters ({res['n_leaves']} leaves, shapes = the dry run's); "
+        f"peak {res['peak_bytes'] / 1e9:.2f} GB against the dry run's "
+        f"{sum(res['dry_bytes'].values()) / 1e9:.2f} GB of arguments "
+        f"({json.dumps(res['dry_bytes'])}); steps cold {res['steps_s'][0]:.2f} s "
+        f"(counted), warm {res['steps_s'][1]:.2f} s against the dry run's "
+        f"compute {terms['compute_s']:.3f} s, memory {terms['memory_s']:.3f} s, "
+        f"collective {terms['collective_s']:.3f} s ({res['dominant']}; "
+        f"{cost['flops']:.4g} FLOPs, {cost['hbm_bytes']:.4g} HBM bytes, "
+        f"{cost['collective_bytes']:.4g} wire bytes, "
+        f"{json.dumps(cost['collective_counts'])}); card {card}")
+    return res
+
+
+def lm_sharded_ep(root: Path, card: str, world: int = 2) -> dict:
+    """Phase 2m (b): mixtral-8x22b's MoE block at its published width in EP
+    mode over 2 gloo ranks (subprocesses) on the card, mesh data 1 x
+    model 2: 4 experts a rank, the token slots exchanged by two
+    ``all_to_all``s staged through the host.  With f32 compute and 1 x 8
+    tokens no expert overflows in either layout, so EP must equal the
+    world-1 ``local_moe`` within 1e-5 of max|out|; bf16 with 4 x 48
+    tokens is timed."""
+    import torch
+
+    script = ROOT / "tests" / "torch_moe_ep_rank.py"
+    outs = [root / f"ep_rank{r}.pt" for r in range(world)]
+    store = root / "ep_store"
+    store.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(r), str(world), str(store),
+         str(outs[r]), *map(str, LM_EP_WIDTH)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(world)]
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"2m (b) rank {r} failed: {err[-3000:]}")
+    ranks = [torch.load(o) for o in outs]
+    ref, ref_aux = ranks[0]["world1"]
+    got = torch.cat([r["f32"]["out"] for r in ranks], dim=1)  # seq over model
+    err = float((got - ref).abs().max() / ref.abs().max())
+    check(got.shape == ref.shape and err <= LM_EP_RTOL,
+          f"2m (b): EP differs from the world-1 local_moe by {err:.3g} R")
+    for r in ranks:
+        check(abs(r["f32"]["aux"] - ref_aux) <= 1e-6 * abs(ref_aux),
+              f"2m (b): aux {r['f32']['aux']} against the world-1 {ref_aux}")
+        check(r["f32"]["experts_here"][0] == 8 // world,
+              "2m (b): a rank does not hold 4 experts")
+    bf = [r["bf16"] for r in ranks]
+    res = {"world": world, "width": LM_EP_WIDTH, "f32_max_err_R": err,
+           "bf16_block_s": [b["s"] for b in bf],
+           "bf16_block_warm_s": max(statistics.median(b["s"][1:]) for b in bf),
+           "all_to_all_s": max(b["all_to_all_s"] for b in bf),
+           "all_to_all_bytes": bf[0]["all_to_all_bytes"],
+           "collectives": [b["collectives"] for b in bf],
+           "processes_wall_s": wall}
+    log(f"2m (b) mixtral MoE d {LM_EP_WIDTH[0]} x d_ff {LM_EP_WIDTH[1]}, EP on "
+        f"{world} gloo ranks: f32 1x8 tokens = the world-1 local_moe within "
+        f"{err:.3g} R; bf16 4x48 tokens: block {res['bf16_block_warm_s'] * 1e3:.1f} "
+        f"ms warm, one all_to_all of {res['all_to_all_bytes']} bytes "
+        f"{res['all_to_all_s'] * 1e3:.2f} ms, collectives a call "
+        f"{json.dumps(res['collectives'][0])}; card {card}")
+    return res
+
+
+def lm_sharded_phase(card: str) -> dict:
+    root = ROOT / "build" / "chip_smoke_lm_sharded"
+    root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    rank0 = lm_sharded_rank0(root, card)
+    t1 = time.perf_counter()
+    ep = lm_sharded_ep(root, card)
+    return {"rank0": rank0, "ep": ep, "rank0_s": t1 - t0,
+            "ep_s": time.perf_counter() - t1}
+
+
 def roi_phase(containers, eng, executor) -> dict:
     """Phase 2c: region reads of full-size containers against the full
     decode's crop, with the decoded tiles counted; one
@@ -3009,25 +3187,24 @@ def full_size_agreement(x, blob, y, eng, info: dict, y_v1) -> None:
 
 
 def warm_timing(x, blob, y, eng, info: dict, **kw) -> None:
-    """Warm compress and decompress, median (mean) of 2; every run must give
-    the same bytes and values again."""
+    """A warm compress and decompress, one pass each (the run's time limit
+    leaves room for no more); they must give the same bytes and values
+    again."""
     import torch
 
-    tc, td = [], []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        b2 = eng.compress(x, info.get("eb", EB), **kw)
-        tc.append(time.perf_counter() - t0)
-        check(b2 == blob, f"{info['field']}: compress not deterministic on the card")
-        t0 = time.perf_counter()
-        y2 = eng.decompress(b2)
-        td.append(time.perf_counter() - t0)
-        check(y2.tobytes() == y.tobytes(),
-              f"{info['field']}: decompress not deterministic on the card")
-    info.update(compress_MB_s=info["raw_MB"] / statistics.median(tc),
-                decompress_MB_s=info["raw_MB"] / statistics.median(td),
-                compress_s_runs=tc, decompress_s_runs=td)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b2 = eng.compress(x, info.get("eb", EB), **kw)
+    tc = time.perf_counter() - t0
+    check(b2 == blob, f"{info['field']}: compress not deterministic on the card")
+    t0 = time.perf_counter()
+    y2 = eng.decompress(b2)
+    td = time.perf_counter() - t0
+    check(y2.tobytes() == y.tobytes(),
+          f"{info['field']}: decompress not deterministic on the card")
+    info.update(compress_MB_s=info["raw_MB"] / tc,
+                decompress_MB_s=info["raw_MB"] / td,
+                compress_s_runs=[tc], decompress_s_runs=[td])
 
 
 def profile(name, shape, dtype, eng, make_field, **kw) -> dict:
@@ -3035,17 +3212,15 @@ def profile(name, shape, dtype, eng, make_field, **kw) -> dict:
     device time by kernel and memcpy (torch.profiler, CUPTI), the
     device's idle share of the wall time, and the host functions of the
     port by cumulative time (cProfile, a separate run: it slows Python
-    code, so read its shares, not its seconds; ISABEL's fields only, as
-    the run's time limit leaves no room for Miranda's, whose cells other
-    than the uniform one take no profile at all)."""
+    code, so read its shares, not its seconds; the run's time limit
+    leaves room for ISABEL's cells only, their device traced alone)."""
     import numpy as np
 
     x = make_field(name, shape, np.dtype(dtype), seed=0)
     blob = eng.compress(x, EB, **kw)
     return profile_calls({"compress": lambda: eng.compress(x, EB, **kw),
                           "decompress": lambda: eng.decompress(blob)},
-                         host=("compress", "decompress")
-                         if name == ISABEL[0] else ())
+                         cpu_ops=False)
 
 
 def profile_calls(calls: dict, host=("compress", "decompress"),
@@ -3837,7 +4012,7 @@ def main() -> None:
     for r in results:
         log(f"full size {r['field']}: ratio {r['ratio']:.3f}, compress "
             f"{r['compress_MB_s']:.1f} MB/s, decompress {r['decompress_MB_s']:.1f} "
-            f"MB/s (warm medians of 2), {r['halo_rounds']} halo rounds, "
+            f"MB/s (one warm pass), {r['halo_rounds']} halo rounds, "
             f"{r['n_sweeps']} sweeps; download {r['d2h_ratio']:.4f}x the "
             f"container (word-level form {r['word_form_d2h_ratio']:.4f}x, "
             f"staged {r['staged_d2h_ratio']:.4f}x); card {card}")
@@ -3854,7 +4029,7 @@ def main() -> None:
         results.append(info)
         log(f"full size {info['field']}: ratio {info['ratio']:.3f}, compress "
             f"{info['compress_MB_s']:.1f} MB/s, decompress "
-            f"{info['decompress_MB_s']:.1f} MB/s (warm medians of 2), "
+            f"{info['decompress_MB_s']:.1f} MB/s (one warm pass), "
             f"{info['n_sweeps']} global band sweeps; card {card}")
     phase_done("2d v1")
 
@@ -3866,7 +4041,7 @@ def main() -> None:
         results.append(info)
         log(f"full size {info['field']}: ratio {info['ratio']:.3f}, compress "
             f"{info['compress_MB_s']:.1f} MB/s, decompress "
-            f"{info['decompress_MB_s']:.1f} MB/s (warm medians of 2); download "
+            f"{info['decompress_MB_s']:.1f} MB/s (one warm pass); download "
             f"{info['d2h_ratio']:.4f}x the container (word-level form "
             f"{info['word_form_d2h_ratio']:.4f}x, staged "
             f"{info['staged_d2h_ratio']:.4f}x); card {card}")
@@ -3886,7 +4061,7 @@ def main() -> None:
         results.append(info)
         log(f"full size {info['field']}: ratio {info['ratio']:.3f}, compress "
             f"{info['compress_MB_s']:.1f} MB/s, decompress "
-            f"{info['decompress_MB_s']:.1f} MB/s (warm medians of 2), "
+            f"{info['decompress_MB_s']:.1f} MB/s (one warm pass), "
             f"{info['halo_rounds']} halo rounds; card {card}")
     phase_done("2e adaptive")
 
@@ -3897,7 +4072,7 @@ def main() -> None:
 
     # ---- 2g. temporal chains at full size
     chains, chain_profiles = [], {}
-    isabel_frames = chain_frames("advect", *ISABEL, 6, field)
+    isabel_frames = chain_frames("advect", *ISABEL, 4, field)
     for label, evo, name, shape, dtype, n, interval, kw in CHAIN_CELLS:
         frames = (isabel_frames[:n] if name == ISABEL[0]
                   else chain_frames(evo, name, shape, dtype, n, field))
@@ -3905,16 +4080,16 @@ def main() -> None:
                                    executor, kernels, topology, tda, launches,
                                    rec)
         # the run's time limit leaves room for one timed pass a chain and
-        # a device profile of the isabel chains only (miranda's is 1.2 GB,
-        # ~15 s a pass); the host's shares of the first chain's compress
-        # only: the decompress's are the snapshot decode's section parsing
+        # a device profile of the first chain only; the host's shares of
+        # its compress only: the decompress's are the snapshot decode's
+        # section parsing
         chain_timing(frames, interval, kw, blob, y, temporal, info, reps=1)
-        if name == ISABEL[0]:
+        if label == CHAIN_CELLS[0][0]:
             chain_profiles[label] = profile_calls({
                 "compress": lambda: temporal.compress_chain(
                     frames, EB, keyframe_interval=interval, **kw),
                 "decompress": lambda: temporal.decompress_chain(blob)},
-                host=("compress",) if label == CHAIN_CELLS[0][0] else ())
+                host=("compress",), cpu_ops=False)
         if label == CHAIN_CELLS[0][0]:
             info["decode_stages"] = chain_decode_stages(blob, temporal, card)
             chain_cut_agreement(frames, temporal, info)
@@ -3957,6 +4132,11 @@ def main() -> None:
     # CPU, the trainer with lossless checkpoints (kernels 8 and 9)
     lm_train = lm_train_phase(kernels, launches, card)
     phase_done("2l LM training")
+
+    # ---- 2m. the LM's distributed part: rank 0 of mixtral-8x22b's
+    # production layout under a fake group, and EP on 2 gloo ranks
+    lm_sharded = lm_sharded_phase(card)
+    phase_done("2m LM sharded")
     log("launches by path: " + json.dumps(launches))
     log(json.dumps({"full_size": results, "launches_by_path": launches}))
     profiles = {f"{cell[0]}{kind}": profile(*cell, api, field, **kw)
@@ -3964,7 +4144,7 @@ def main() -> None:
                                       (" plain", eng, {"preserve_order": False}),
                                       (" v1", core, {"container_version": 1}),
                                       (" adaptive", eng, {"adaptive_eb": "tda"}))
-                for cell in ((ISABEL, MIRANDA) if kind == "" else (ISABEL,))}
+                for cell in (ISABEL,)}
     profiles.update(chain_profiles)
     for cell, prof in profiles.items():
         for what, p in prof.items():
@@ -4168,7 +4348,8 @@ def main() -> None:
         {"card": card, "build_s": build_s, "full_size": results,
          "ff32": ff32, "chains": chains, "profiles": profiles, "roi": roi,
          "serving": serving, "cluster": cluster, "distributed": distributed,
-         "lm": lm, "lm_train": lm_train, "phase_s": phase_s,
+         "lm": lm, "lm_train": lm_train, "lm_sharded": lm_sharded,
+         "phase_s": phase_s,
          "launches_by_path": launches, "kernels": rows,
          "seconds": time.perf_counter() - T0}, indent=1))
     print(json.dumps({"kernels": rows}), flush=True)

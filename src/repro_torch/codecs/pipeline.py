@@ -89,11 +89,14 @@ def encode_ints(ints: torch.Tensor, use_delta: bool) -> bytes:
 
 
 def decode_ints(payload: bytes, n_valid: int, shape, out_dtype: torch.dtype,
-                use_delta: bool, device="cpu") -> torch.Tensor:
-    """-> (shape) ``out_dtype`` tensor on ``device``."""
+                use_delta: bool, device="cuda") -> torch.Tensor:
+    """-> (shape) ``out_dtype`` tensor on ``device`` (the card unless the
+    caller passes ``device="cpu"``)."""
+    from ..engine.engine import resolve_device
+
+    dev = resolve_device(device)
     bitmap, packed = bitstream.deserialize_rze_section(payload)
     sdt = np.dtype(f"<i{bitmap.dtype.itemsize}")
-    dev = torch.device(device)
     out = _decode_device(torch.from_numpy(bitmap.view(sdt)).to(dev),
                          torch.from_numpy(packed.view(sdt)).to(dev),
                          n_valid, tuple(shape), use_delta)
@@ -106,7 +109,7 @@ def encode_bins(bins: torch.Tensor) -> bytes:
 
 
 def decode_bins(payload: bytes, n_valid: int, shape, bin_dtype,
-                device="cpu") -> torch.Tensor:
+                device="cuda") -> torch.Tensor:
     return decode_ints(payload, n_valid, shape, bin_dtype, True, device)
 
 
@@ -117,5 +120,5 @@ def encode_subbins(subbins: torch.Tensor) -> bytes:
 
 
 def decode_subbins(payload: bytes, n_valid: int, shape, sub_dtype,
-                   device="cpu") -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     return decode_ints(payload, n_valid, shape, sub_dtype, False, device)

@@ -1,9 +1,7 @@
-"""Distributed compression over ``torch.distributed`` (port of
-``repro.distributed``): the sharded tile path and gradient compression.
-
-The reference's package also re-exports its logical-axis sharding rules
-(``sharding.py``), which belong to the LM scaffold's distributed part,
-ROADMAP.md module queue row 15c; they are not part of the port yet.
+"""Distributed compression and the LM's sharding over ``torch.distributed``
+(port of ``repro.distributed``): the sharded tile path and gradient
+compression (``compression``), and the logical-axis sharding rules
+(``sharding``, re-exported as the reference re-exports them).
 """
 from .compression import (
     TilePut,
@@ -13,12 +11,22 @@ from .compression import (
     make_error_feedback_compressor,
     make_tile_put,
 )
+from .sharding import (
+    ShardingRules,
+    logical_constraint,
+    set_sharding_rules,
+    sharding_rules,
+)
 
 __all__ = [
+    "ShardingRules",
     "TilePut",
     "compress_fields_sharded",
     "compressed_pod_psum",
     "init_error_feedback",
+    "logical_constraint",
     "make_error_feedback_compressor",
     "make_tile_put",
+    "set_sharding_rules",
+    "sharding_rules",
 ]

@@ -6,9 +6,12 @@ catching an error:
 * ``nccl`` runs each collective on the device tensors themselves;
 * ``gloo`` stages each collective through host tensors explicitly (a
   copy down, the collective on the CPU, a copy back up), so the kernels
-  still run on the card while gloo moves only host memory.
+  still run on the card while gloo moves only host memory;
+* ``fake`` (a dry run's process group, ``launch.dryrun``) runs each
+  collective on the tensors where they are, ``meta`` included, and moves
+  nothing.
 
-Gathers move raw bytes (a ``uint8`` view of the block), so every dtype
+Gathers and exchanges move raw bytes (a ``uint8`` view of the block), so every dtype
 the executor carries travels the same way: neither NCCL nor gloo
 reduces or gathers ``int16`` or ``bool`` tensors.  ``COUNTS`` counts the
 collectives run and the bytes each rank contributed to them.
@@ -22,7 +25,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-BACKENDS = ("nccl", "gloo")
+BACKENDS = ("nccl", "gloo", "fake")
 
 COUNTS: Counter = Counter()
 _COUNTS_LOCK = threading.Lock()
@@ -51,12 +54,13 @@ class Collectives:
                              f"{self.backend!r} (want one of {BACKENDS})")
         self.rank = dist.get_rank(group)
         self.world = dist.get_world_size(group)
-        # where the backend's buffers live
-        self.device = (torch.device("cuda", torch.cuda.current_device())
-                       if self.backend == "nccl" else torch.device("cpu"))
+        # where the backend's buffers live (None: where the tensor is)
+        self.device = {"nccl": (torch.device("cuda", torch.cuda.current_device())
+                                if self.backend == "nccl" else None),
+                       "gloo": torch.device("cpu"), "fake": None}[self.backend]
 
     def _staged(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device)
+        return t if self.device is None else t.to(self.device)
 
     def all_gather(self, block: torch.Tensor) -> torch.Tensor:
         """Every rank's ``block`` (one shape and dtype on every rank)
@@ -68,6 +72,16 @@ class Collectives:
         full = out.to(block.device).view(block.dtype)
         return full.reshape((self.world * block.shape[0],)
                             + tuple(block.shape[1:]))
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s dim 0 in ``world`` equal blocks exchanged: this rank's
+        block ``j`` goes to rank ``j``, and block ``i`` of the result came
+        from rank ``i``; on ``t``'s device."""
+        raw = self._staged(t.contiguous()).view(torch.uint8)
+        out = torch.empty_like(raw)
+        dist.all_to_all_single(out, raw, group=self.group)
+        _count("all_to_all", raw.numel())
+        return out.to(t.device).view(t.dtype)
 
     def all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         """``t`` reduced over the group with ``op`` (a

@@ -1,2 +1,4 @@
 """Launchers of the port (``python -m repro_torch.launch.serve``,
-``python -m repro_torch.launch.train``)."""
+``python -m repro_torch.launch.train``, ``python -m
+repro_torch.launch.dryrun``) and the LM's sharding policy (``mesh``,
+``shardings``, ``cost``)."""

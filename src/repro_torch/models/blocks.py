@@ -1,13 +1,17 @@
 """Per-layer blocks: attention (with its three cache forms) and the dense
 FFN (port of ``repro.models.blocks``); MoE and the SSMs live in sibling
 modules.  Each block is an ``nn.Module`` whose parameter names are the
-reference's leaf names."""
+reference's leaf names.  On DTensors (a model placed by
+``launch.shardings``) each runs as a local region of ``parallel``."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from ..distributed.sharding import logical_constraint
+from . import parallel
 from .attention import blockwise_attention
 from .common import Norm, apply_rope, cast_weight, cdtype, normal_init, param, pdtype
 
@@ -36,10 +40,27 @@ class Attention(torch.nn.Module):
 
     def forward(self, x, *, window, cache=None, q_offset: int = 0):
         """x: (B, S, d). cache: None | dict(k, v[, k_scale, v_scale]),
-        updated in place.  KV layout: (B, Hkv, Smax, D)."""
+        updated in place.  KV layout: (B, Hkv, Smax, D).  On DTensors the
+        block runs as a local region (``parallel.attention``)."""
+        if isinstance(x, DTensor):
+            return parallel.attention(self, x, window=window, cache=cache,
+                                      q_offset=q_offset)
+        out = self.attend(x, window=window, cache=cache, q_offset=q_offset)
+        if self.cfg.post_norm:
+            out = self.norm_post(out)
+        return out
+
+    def attend(self, x, *, window, cache=None, q_offset: int = 0, heads=None,
+               kv_heads=None, kv_slice=None):
+        """The block before its post-norm, on local tensors: ``heads`` query
+        and ``kv_heads`` K/V heads (default: all) from the weights as
+        they are; the attention reads K/V heads ``kv_slice`` (lo, hi) of
+        them (default: all)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        hq = heads or cfg.n_heads
+        hkv = kv_heads or cfg.n_kv_heads
+        hd = cfg.hd
         ct = cdtype(cfg)
         h = self.norm(x)
 
@@ -52,6 +73,11 @@ class Attention(torch.nn.Module):
         q = proj("wq", "bq", hq)
         k = proj("wk", "bk", hkv)
         v = proj("wv", "bv", hkv)
+        # the reference pins these layouts before the KV-block loop; its
+        # region has pinned them here already
+        q = logical_constraint(q, "batch", "heads", "seq_noshard", None)
+        k = logical_constraint(k, "batch", "heads", "seq_noshard", None)
+        v = logical_constraint(v, "batch", "heads", "seq_noshard", None)
         positions = q_offset + torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -97,16 +123,18 @@ class Attention(torch.nn.Module):
             cache["v"][:, :, at] = v.to(cache["v"].dtype)
             k_full, v_full = cache["k"], cache["v"]
             kv_len = q_offset + s
+        if kv_slice is not None:
+            lo, hi = kv_slice
+            k_full, v_full = k_full[:, lo:hi], v_full[:, lo:hi]
+            if k_scale is not None:
+                k_scale, v_scale = k_scale[:, lo:hi], v_scale[:, lo:hi]
 
         out = blockwise_attention(
             q, k_full, v_full, causal=cfg.causal, q_offset=q_offset,
             window=window, cap=cfg.attn_softcap, kv_len=kv_len,
             k_start=k_start, k_scale=k_scale, v_scale=v_scale)
         out = out.transpose(1, 2).reshape(b, s, hq * hd)
-        out = out @ cast_weight(self, "wo", ct)
-        if cfg.post_norm:
-            out = self.norm_post(out)
-        return out
+        return out @ cast_weight(self, "wo", ct)
 
 
 def _slot(length: int, s: int, q_offset: int) -> slice:
@@ -169,6 +197,15 @@ class FFN(torch.nn.Module):
             self.norm_post = Norm(cfg, device)
 
     def forward(self, x):
+        if isinstance(x, DTensor):
+            return parallel.ffn(self, x)
+        out = self.mlp(x)
+        if self.cfg.post_norm:
+            out = self.norm_post(out)
+        return out
+
+    def mlp(self, x):
+        """The FFN before its post-norm, with the weights as they are."""
         cfg = self.cfg
         ct = cdtype(cfg)
         h = self.norm(x)
@@ -177,7 +214,5 @@ class FFN(torch.nn.Module):
             mid = act(cfg, h @ cast_weight(self, "w_gate", ct)) * up
         else:
             mid = act(cfg, up)
-        out = mid @ cast_weight(self, "w_down", ct)
-        if cfg.post_norm:
-            out = self.norm_post(out)
-        return out
+        mid = logical_constraint(mid, "batch", "seq_noshard", "ffn")
+        return mid @ cast_weight(self, "w_down", ct)

@@ -15,7 +15,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed.tensor
 from torch.utils.checkpoint import checkpoint
+
+from ..distributed.sharding import sharding_rules, use_sharding_rules
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -31,7 +34,10 @@ def pdtype(cfg) -> torch.dtype:
 def normal_init(gen: torch.Generator, shape, std, dtype=torch.float32,
                 device="cpu") -> torch.Tensor:
     """``N(0, std)`` drawn in f32 from ``gen`` (whose device is the
-    tensor's), then cast: the reference's ``normal_init``."""
+    tensor's), then cast: the reference's ``normal_init``.  On ``meta``
+    (no generator) the tensor has a shape and no values."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device)
     return (x * std).to(dtype)
@@ -140,6 +146,10 @@ class Norm(torch.nn.Module):
             self.bias = param(torch.zeros(d, device=device))
 
     def forward(self, x):
+        if isinstance(x, torch.distributed.tensor.DTensor):
+            from . import parallel
+
+            return parallel.norm(self, x)
         if self.kind == "rmsnorm":
             return rmsnorm(x, self.scale, self.eps)
         return layernorm(x, self.scale, self.bias, self.eps)
@@ -151,9 +161,18 @@ def param(t: torch.Tensor) -> torch.nn.Parameter:
 
 def remat(fn, *args):
     """``fn(*args)``, its activations recomputed in the backward pass when
-    grad is enabled (the reference's ``jax.checkpoint``)."""
+    grad is enabled (the reference's ``jax.checkpoint``).  The recompute
+    runs under the sharding rules of the forward: on CUDA the backward
+    runs on autograd's device thread, which does not see this thread's
+    rules."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        rules = sharding_rules()
+
+        def run(*a):
+            with use_sharding_rules(rules):
+                return fn(*a)
+
+        return checkpoint(run, *args, use_reentrant=False)
     return fn(*args)
 
 

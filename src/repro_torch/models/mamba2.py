@@ -14,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from . import parallel
 from .common import Norm, cast_weight, cdtype, normal_init, param, pdtype
 
 CHUNK = 128
@@ -120,6 +122,8 @@ class Mamba2(torch.nn.Module):
     def forward(self, x, cache=None):
         """x: (B, S, d). cache: None | {conv, ssm}, whose entries are
         replaced by the new state."""
+        if isinstance(x, DTensor):
+            return parallel.replicated_block(self, x, cache)
         cfg = self.cfg
         b, s, _ = x.shape
         d_in, h, p_, n = dims(cfg)

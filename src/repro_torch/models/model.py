@@ -19,8 +19,11 @@ The caches are a dict ``{"layers": [per-layer cache], "len": int}``
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..distributed.sharding import logical_constraint
 from ..engine.engine import resolve_device
+from . import parallel
 from .blocks import FFN, Attention, attn_cache_init
 from .common import (
     Norm,
@@ -75,15 +78,18 @@ class Block(torch.nn.Module):
                               cache=None if cache is None else cache["attn"],
                               q_offset=q_offset)
             h = h + rs * delta
+            h = logical_constraint(h, "batch", "seq", "embed")
             if hasattr(self, "moe"):
                 delta, aux = self.moe(h)
             else:
                 delta = self.ffn(h)
-            return h + rs * delta, aux
-        key, mod = (("mamba", self.mamba) if kind == "mamba2"
-                    else ("rwkv", self.rwkv))
-        delta = mod(h, cache=None if cache is None else cache[key])
-        return h + rs * delta, aux
+            h = h + rs * delta
+        else:
+            key, mod = (("mamba", self.mamba) if kind == "mamba2"
+                        else ("rwkv", self.rwkv))
+            delta = mod(h, cache=None if cache is None else cache[key])
+            h = h + rs * delta
+        return logical_constraint(h, "batch", "seq", "embed"), aux
 
 
 def block_cache(cfg, kind, batch, max_len, device) -> dict:
@@ -101,13 +107,25 @@ def block_cache(cfg, kind, batch, max_len, device) -> dict:
 class Model(torch.nn.Module):
     """One architecture config's weights (f32 by default, made from
     ``seed`` through a ``torch.Generator`` on ``device``), served through
-    ``prefill`` and ``decode_step`` and trained through ``train_loss``."""
+    ``prefill`` and ``decode_step`` and trained through ``train_loss``.
+
+    On ``device="meta"`` the weights have shapes and no values (no draws,
+    no memory): ``launch.shardings.param_shardings`` places them on a
+    mesh and can materialize one rank's blocks.  A model whose weights
+    are DTensors runs under the mesh's sharding rules
+    (``distributed.sharding.use_sharding_rules``), every layer as a local
+    region (``models.parallel``); its batch may be given whole (every
+    rank the same), and is placed by ``launch.shardings.batch_shardings``.
+    """
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         super().__init__()
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        if torch.device(device).type == "meta":
+            dev, gen = torch.device("meta"), None
+        else:
+            dev = resolve_device(device)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
         dt = pdtype(cfg)
         self.cfg = cfg
         self.embed = param(normal_init(gen, (cfg.vocab, cfg.d_model), 0.02, dt, dev))
@@ -129,6 +147,20 @@ class Model(torch.nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the weights are DTensors (``param_shardings``)."""
+        return isinstance(self.embed, DTensor)
+
+    def _place_batch(self, batch: dict) -> dict:
+        from ..launch.shardings import batch_shardings
+
+        r = parallel.rules()
+        dev = self.embed.to_local().device
+        return batch_shardings(r.mesh, r, {
+            k: (v if isinstance(v, DTensor) else torch.as_tensor(v).to(dev))
+            for k, v in batch.items()})
+
     # ----------------------------------------------------------- caches
 
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -142,6 +174,11 @@ class Model(torch.nn.Module):
                 {"attn": attn_cache_init(cfg, batch, max_len, window=cfg.window,
                                          device=dev)}
                 for _ in range(n_groups)]
+        if self.sharded:
+            from ..launch.shardings import cache_shardings
+
+            r = parallel.rules()
+            cache_shardings(r.mesh, r, caches, cfg.n_kv_heads, cfg)
         return caches
 
     # ---------------------------------------------------------- forward
@@ -196,6 +233,8 @@ class Model(torch.nn.Module):
         dtype, on the model's device."""
         cfg, dev = self.cfg, self.device
         ct = cdtype(cfg)
+        if self.sharded:
+            return self._embed_sharded(batch)
 
         def get(k):
             return torch.as_tensor(batch[k]).to(dev)
@@ -210,6 +249,39 @@ class Model(torch.nn.Module):
             h = cast_weight(self, "embed", ct)[get("tokens").long()]
         return h * scalar(cfg.embed_scale, ct)
 
+    def _embed_sharded(self, batch: dict, text_only: bool = False) -> DTensor:
+        """``embed_inputs`` on DTensors, at the layer-boundary layout
+        (``text_only``: the decode step's tokens alone)."""
+        cfg = self.cfg
+        ct = cdtype(cfg)
+        batch = self._place_batch(batch)
+        if text_only:
+            h = parallel.embed_tokens(self, batch["tokens"], ct)
+        elif cfg.input_kind == "frames":
+            h = batch["frames"].to(ct)
+        elif cfg.input_kind == "tokens+image":
+            img = parallel.project_image(self, batch["image_embeds"], ct)
+            tok = logical_constraint(
+                parallel.embed_tokens(self, batch["tokens"], ct),
+                "batch", None, None)
+            h = torch.cat([img, tok], dim=1)
+        else:
+            h = parallel.embed_tokens(self, batch["tokens"], ct)
+        h = logical_constraint(h, "batch", "seq", "embed")
+        return h * scalar(cfg.embed_scale, ct)
+
+    def head_logits(self, h, pos=None, dtype=None, cap=None):
+        """``h``'s logits over the vocabulary in ``dtype`` (default: the
+        compute dtype), soft capped at ``cap``: of position ``pos`` of
+        each row (all positions when None).  On DTensors the vocabulary
+        is sharded over ``model``."""
+        dtype = dtype or cdtype(self.cfg)
+        if isinstance(h, DTensor):
+            return parallel.head(self, h, pos, dtype, cap)
+        if pos is not None:
+            h = h[:, pos]
+        return softcap(h.to(dtype) @ self.lm_head_weight(dtype), cap)
+
     def lm_head_weight(self, dtype: torch.dtype | None = None) -> torch.Tensor:
         """The (d, V) head: the tied embedding's transpose or ``lm_head``,
         in ``dtype`` if given (``cast_weight``)."""
@@ -217,10 +289,9 @@ class Model(torch.nn.Module):
         w = getattr(self, name) if dtype is None else cast_weight(self, name, dtype)
         return w.T if self.cfg.tie_embeddings else w
 
-    def _logits(self, h_last):
-        """The head in f32, then the final soft cap."""
-        logits = h_last.float() @ self.lm_head_weight().float()
-        return softcap(logits, self.cfg.final_softcap)
+    def _logits(self, h, pos: int):
+        """Position ``pos``'s head in f32, then the final soft cap."""
+        return self.head_logits(h, pos, torch.float32, self.cfg.final_softcap)
 
     def train_loss(self, batch: dict):
         """Returns (loss, metrics): the masked mean cross-entropy of
@@ -232,7 +303,11 @@ class Model(torch.nn.Module):
         backward pass."""
         cfg, dev = self.cfg, self.device
         ct = cdtype(cfg)
-        h, aux = self.forward_hidden(self.embed_inputs(batch))
+        h = self.embed_inputs(batch)
+        h = logical_constraint(h, "batch", "seq", "embed")
+        h, aux = self.forward_hidden(h)
+        if self.sharded:
+            return self._loss_sharded(h, aux, batch)
         labels = torch.as_tensor(batch["labels"]).to(dev)
         mask = batch.get("mask")
         mask = (torch.ones(labels.shape, device=dev) if mask is None
@@ -248,6 +323,25 @@ class Model(torch.nn.Module):
             metrics["moe_aux"] = aux
         return loss, metrics
 
+    def _loss_sharded(self, h, aux, batch: dict):
+        cfg = self.cfg
+        placed = self._place_batch({k: batch[k] for k in ("labels", "mask")
+                                    if batch.get(k) is not None})
+        labels = placed["labels"]
+        mask = placed.get("mask")
+        if mask is None:
+            mask = torch.ones_like(labels, dtype=torch.float32)
+        if cfg.input_kind == "tokens+image":
+            h = logical_constraint(h, "batch", None, None)[:, -labels.shape[1]:]
+        xe = parallel.chunked_xent(self, h, labels, mask.float(),
+                                   final_cap=cfg.final_softcap)
+        loss, metrics = xe, {"xent": xe}
+        if cfg.moe is not None:
+            aux = aux.full_tensor() if isinstance(aux, DTensor) else aux
+            loss = loss + cfg.moe.aux_loss_weight * aux
+            metrics["moe_aux"] = aux
+        return loss, metrics
+
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int):
         """Run the prompt through the model, filling fresh caches.
@@ -255,7 +349,7 @@ class Model(torch.nn.Module):
         h = self.embed_inputs(batch)
         caches = self.init_cache(h.shape[0], max_len)
         h, _ = self.forward_hidden(h, caches, q_offset=0)
-        return self._logits(h[:, -1]), caches
+        return self._logits(h, -1), caches
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, caches: dict):
@@ -263,11 +357,15 @@ class Model(torch.nn.Module):
         advance in place (and are returned)."""
         cfg, dev = self.cfg, self.device
         ct = cdtype(cfg)
-        h = cast_weight(self, "embed", ct)[
-            torch.as_tensor(token).to(dev).long()][:, None]
-        h = h * scalar(cfg.embed_scale, ct)
+        if self.sharded:
+            tok = token if isinstance(token, DTensor) else torch.as_tensor(token)
+            h = self._embed_sharded({"tokens": tok[:, None]}, text_only=True)
+        else:
+            h = cast_weight(self, "embed", ct)[
+                torch.as_tensor(token).to(dev).long()][:, None]
+            h = h * scalar(cfg.embed_scale, ct)
         h, _ = self.forward_hidden(h, caches, q_offset=caches["len"])
-        return self._logits(h[:, 0]), caches
+        return self._logits(h, 0), caches
 
 
 def clone_cache(caches: dict) -> dict:

@@ -16,7 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from . import parallel
 from .common import Norm, cast_weight, cdtype, normal_init, param, pdtype
 
 CHUNK = 64
@@ -108,6 +110,8 @@ class RWKV6(torch.nn.Module):
         """x: (B, S, d); cache: None | {shift_tm, shift_cm, state}, whose
         entries are replaced by the new state.  Returns the time-mix plus
         channel-mix delta."""
+        if isinstance(x, DTensor):
+            return parallel.replicated_block(self, x, cache)
         cfg = self.cfg
         b, s, d = x.shape
         h, hd = dims(cfg)

@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 F32 = torch.float32
 # elements per update chunk, by device type: on the card large chunks
@@ -43,9 +44,18 @@ def adamw_init(params: dict) -> dict:
 
 
 def global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 sum of squares."""
-    sq = [torch.sum(torch.square(g.to(F32))) for g in grads.values()]
+    """sqrt of the sum of every leaf's f32 sum of squares.  A DTensor
+    leaf's sum is reduced over its mesh (each element counted once,
+    whatever its placements); the norm is a plain 0-d tensor."""
+    sq = []
+    for g in grads.values():
+        t = torch.sum(torch.square(g.to(F32)))
+        sq.append(t.full_tensor() if isinstance(t, DTensor) else t)
     return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def decay_mask(names, cfg) -> dict:
@@ -125,7 +135,9 @@ def apply_update(grads: dict, state: dict, params: dict, scale: torch.Tensor,
     b2) * g * g``, ``update + weight_decay * p`` and ``p - lr * (...)``
     are fused multiply-adds (one rounding each), and ``(m / bc1) / d``
     is ``m / (bc1 * d)``.  Large leaves run in chunks of ``CHUNK[device
-    type]`` elements, which bounds the temporaries.
+    type]`` elements, which bounds the temporaries.  DTensor leaves
+    (the gradient and moments laid out as their parameter) update their
+    local blocks: the update is elementwise.
     """
     decay = decay or {}
     step = state["step"] + 1
@@ -141,11 +153,16 @@ def apply_update(grads: dict, state: dict, params: dict, scale: torch.Tensor,
     with torch.no_grad():
         for name, p in params.items():
             stacked = bool(decay.get(name))
+            if isinstance(p, DTensor):
+                for t in (grads[name], state["m"][name], state["v"][name]):
+                    if tuple(t.placements) != tuple(p.placements):
+                        raise ValueError(f"{name}: {t.placements} is not laid "
+                                         f"out as its parameter {p.placements}")
             # views: the in-place writes land in the leaves themselves
-            flat = [t.view(-1) for t in (p, grads[name], state["m"][name],
-                                        state["v"][name])]
-            chunk = CHUNK[p.device.type]
-            for lo in range(0, max(p.numel(), 1), chunk):
+            flat = [_local(t).view(-1)
+                    for t in (p, grads[name], state["m"][name], state["v"][name])]
+            chunk = CHUNK.get(p.device.type, CHUNK["cuda"])
+            for lo in range(0, max(flat[0].numel(), 1), chunk):
                 pc, gc, mc, vc = (t[lo:lo + chunk] for t in flat)
                 g = gc.to(F32) * scale
                 m2 = _fma(fb1, mc, g * (1 - b1))

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.common import cdtype
 from ..models.config import ModelConfig
@@ -33,7 +34,8 @@ def make_lr_schedule(cfg: ModelConfig, base_lr=3e-4, warmup=None, total=10_000):
 
 
 def make_train_step(cfg: ModelConfig, grad_transform: Callable | None = None,
-                    base_lr: float = 3e-4, total_steps: int = 10_000):
+                    base_lr: float = 3e-4, total_steps: int = 10_000,
+                    check_finite: bool = True):
     """Returns step(model, opt_state, batch) -> (model, opt_state, metrics).
 
     ``batch`` holds numpy arrays or tensors (``SyntheticLMStream``);
@@ -41,6 +43,10 @@ def make_train_step(cfg: ModelConfig, grad_transform: Callable | None = None,
     ``moe_aux``) as detached 0-d tensors.  grad_transform: optional
     ``(grads, opt_state) -> (grads, opt_state)`` hook over the
     ``{name: grad}`` dict; the compressed all-reduce plugs in here.
+    ``check_finite=False`` skips the loss check (a dry run on ``meta``
+    has no values to check).  A model on DTensors (``launch.shardings``)
+    runs under its mesh's sharding rules; its gradients are laid out as
+    their parameters before the update.
     """
     schedule = make_lr_schedule(cfg, base_lr, total=total_steps)
     decay: dict = {}
@@ -53,13 +59,14 @@ def make_train_step(cfg: ModelConfig, grad_transform: Callable | None = None,
             p.grad = None
         loss, metrics = model.train_loss(batch)
         loss.backward()
-        if not bool(torch.isfinite(loss)):
+        if check_finite and not bool(torch.isfinite(loss)):
             for p in params.values():
                 p.grad = None
             raise FloatingPointError(f"non-finite loss {loss.item()}")
         # a parameter the loss does not reach (hubert's token embedding)
         # has a zero gradient, as in the reference's value_and_grad
-        grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+        grads = {k: (torch.zeros_like(p) if p.grad is None
+                     else _as_param(p.grad, p))
                  for k, p in params.items()}
         for p in params.values():
             p.grad = None
@@ -73,6 +80,14 @@ def make_train_step(cfg: ModelConfig, grad_transform: Callable | None = None,
         return model, opt_state, metrics
 
     return step
+
+
+def _as_param(g, p):
+    """A DTensor gradient laid out as its parameter (a pending sum over
+    the axes the parameter is replicated on is reduced)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def init_train_state(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -102,6 +117,6 @@ def make_encoder_forward(cfg: ModelConfig):
     @torch.no_grad()
     def fn(model: Model, batch):
         h, _ = model.forward_hidden(model.embed_inputs(batch))
-        return h @ model.lm_head_weight(cdtype(cfg))
+        return model.head_logits(h, dtype=cdtype(cfg))
 
     return fn

@@ -336,6 +336,12 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
     from repro_torch.kernels import ops
     from repro_torch.tda import adaptive
 
+    # the whole-field pipeline's decodes run on the card unless asked
+    from repro_torch.codecs import pipeline
+
+    ints = torch.arange(16, dtype=torch.int32).reshape(4, 4)
+    bins_payload = pipeline.encode_bins(ints)
+    sub_payload = pipeline.encode_subbins(ints - 8)
     layout = engine.CompressionPlan().layout_for(x.shape)
     x3 = x.reshape(layout.canonical)
     for call in (lambda **kw: tda.critical_signature(x, **kw),
@@ -349,7 +355,11 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
                  lambda **kw: adaptive.critical_tiles(x, layout, **kw),
                  lambda **kw: adaptive.tighten_ladder(
                      x, layout, np.zeros(layout.n_tiles, np.uint8), 0.1, **kw),
-                 lambda **kw: ops.ff32_domain_ok(x, 0.1, **kw)):
+                 lambda **kw: ops.ff32_domain_ok(x, 0.1, **kw),
+                 lambda **kw: pipeline.decode_bins(bins_payload, 16, (4, 4),
+                                                   torch.int32, **kw),
+                 lambda **kw: pipeline.decode_subbins(sub_payload, 16, (4, 4),
+                                                      torch.int32, **kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         call(device="cpu")

@@ -917,3 +917,43 @@ def test_cuda_trainer_checkpoints_launch_kernels_8_and_9(dev, tmp_path):
 
     for a, b in zip(leaves(want), leaves(got)):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_cuda_moe_ep_on_two_gloo_ranks_equals_world_1(dev, tmp_path):
+    """``chip_smoke.py`` phase 2m (b)'s check at a small width: mixtral's
+    MoE block (8 experts, d 64 x d_ff 128) in EP mode on 2 gloo ranks
+    (subprocesses) on the card, 4 experts a rank, the token slots through
+    two ``all_to_all``s staged through the host; with f32 compute and 1 x
+    8 tokens no expert overflows, so the ranks' outputs equal the world-1
+    ``local_moe`` within 1e-5 of its max|out|."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    outs = [tmp_path / f"rank{r}.pt" for r in range(2)]
+    env = dict(os.environ, PYTHONPATH=str(here.parent / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_moe_ep_rank.py"), str(r), "2",
+         str(tmp_path / "store"), str(outs[r]), "64", "128"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, logs):
+        assert p.returncode == 0, err[-3000:]
+    ranks = [torch.load(o) for o in outs]
+    ref, ref_aux = ranks[0]["world1"]
+    got = torch.cat([r["f32"]["out"] for r in ranks], dim=1)
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    for r in ranks:
+        assert abs(r["f32"]["aux"] - ref_aux) <= 1e-6 * abs(ref_aux)
+        assert r["f32"]["experts_here"] == (4, 64, 128)
+        # two exchanges a call, staged through the host, and the aux's sum
+        assert r["f32"]["collectives"]["all_to_all"] == 2
+        assert torch.isfinite(r["bf16"]["out"]).all()

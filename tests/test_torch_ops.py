@@ -365,7 +365,8 @@ def test_pipeline_sections_match_reference(rng, dtype, n):
         want = ref_enc(jnp.asarray(arr))
         got = enc(_t(arr))
         assert got == want, enc.__name__
-        back = dec(got, n, shape, torch.int32 if dtype == np.int32 else torch.int64)
+        back = dec(got, n, shape, torch.int32 if dtype == np.int32 else torch.int64,
+                   device="cpu")
         assert np.array_equal(back.numpy(), arr)
         ref_dec = getattr(ref_pipeline, dec.__name__)
         assert np.array_equal(np.asarray(ref_dec(got, n, shape, dtype)), arr)
