@@ -338,6 +338,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1510,7 +1511,6 @@ def service_path(store, x, y, eng, kernels, card: str) -> tuple[dict, dict]:
     mean batch occupancy exceeds 1 and no library loads.  Returns the
     timings and the service's own launches: the direct calls it is held
     to run outside the count."""
-    import threading
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -2575,13 +2575,89 @@ def _example_module():
     return ex
 
 
-def lm_train_full(card: str) -> dict:
+# The dry run's memory analysis against the card's allocator (2l and 2m
+# (a)): the meta prediction within MEMORY_PREDICT_RTOL of
+# torch.cuda.max_memory_allocated() over the same step, the live counter
+# run on the card within MEMORY_LIVE_RTOL of it
+MEMORY_PREDICT_RTOL = 0.05
+MEMORY_LIVE_RTOL = 0.01
+
+
+def lm_train_prediction() -> dict:
+    """2l's train step (qwen2.5-3b at full size, the same seed and batch)
+    counted on meta: its memory analysis and FLOPs.  Run in a thread
+    beside the kernels' build (a dispatch mode is the thread's own)."""
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.launch.cost import CostCounter
+    from repro_torch.models import get_arch
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = get_arch(LM_ARCH).config
+    model, opt = init_train_state(cfg, 0, "meta")
+    step = make_train_step(cfg, check_finite=False)
+    batch = SyntheticLMStream(cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(0)
+    with CostCounter(arguments=(model, opt)) as counter:
+        result = step(model, opt, batch)
+    return {"memory": counter.memory_analysis(result),
+            "flops": counter.summary()["flops"], "s": time.perf_counter() - t0}
+
+
+def memory_gaps(label: str, predicted: dict, live: dict, card_peak: int,
+                uncounted_peak: int, held: int, card: str,
+                flops: tuple[float, float]) -> dict:
+    """Hold the meta prediction against the allocator's peak over the
+    counted step and over the uncounted step after it, and the live
+    counter on the card against the counted step's (bytes, each step a
+    peak window of its own); log them, and return the figures."""
+    meta, on_card = predicted["peak_memory_in_bytes"], live["peak_memory_in_bytes"]
+    gaps = {"meta_peak": meta, "live_peak": on_card, "card_peak": card_peak,
+            "card_uncounted_peak": uncounted_peak,
+            "card_held_before": held,
+            "live_argument": live["argument_size_in_bytes"],
+            "meta_temp": predicted["temp_size_in_bytes"],
+            "live_temp": live["temp_size_in_bytes"],
+            "meta_gap": (meta - card_peak) / card_peak,
+            "meta_uncounted_gap": (meta - uncounted_peak) / uncounted_peak,
+            "live_gap": (on_card - card_peak) / card_peak,
+            "meta_flops": flops[0], "card_counted_flops": flops[1]}
+    log(f"{label} memory over one train step: card max_memory_allocated "
+        f"{card_peak} B over the counted step ({held} B held as it began, "
+        f"the counter's arguments {live['argument_size_in_bytes']} B), "
+        f"{uncounted_peak} B over the uncounted step after it (the counting "
+        f"mode adds {card_peak - uncounted_peak} B); meta prediction peak "
+        f"{meta} B (gap {gaps['meta_gap']:+.4%} to the counted step, "
+        f"{gaps['meta_uncounted_gap']:+.4%} to the uncounted; temp "
+        f"{predicted['temp_size_in_bytes']} B); live counter on the card peak "
+        f"{on_card} B (gap {gaps['live_gap']:+.4%}, temp "
+        f"{live['temp_size_in_bytes']} B); counted FLOPs meta {flops[0]:.6g}, "
+        f"card {flops[1]:.6g}; card {card}")
+    for gap, peak, step in ((gaps["meta_gap"], card_peak, "counted"),
+                            (gaps["meta_uncounted_gap"], uncounted_peak,
+                             "uncounted")):
+        check(abs(gap) <= MEMORY_PREDICT_RTOL,
+              f"{label}: the meta prediction {meta} B is {gap:+.3%} off the "
+              f"card's {peak} B over the {step} step")
+    check(abs(gaps["live_gap"]) <= MEMORY_LIVE_RTOL,
+          f"{label}: the live counter {on_card} B is {gaps['live_gap']:+.3%} "
+          f"off the card's {card_peak} B")
+    # the backward and the remat recompute run on autograd's device
+    # thread on CUDA: the counter must see them there as on meta
+    check(abs(flops[1] - flops[0]) <= 0.01 * flops[0],
+          f"{label}: the card's counted FLOPs {flops[1]:.6g} differ from "
+          f"meta's {flops[0]:.6g}")
+    return gaps
+
+
+def lm_train_full(card: str, predicted: dict) -> dict:
     """2l (a): ``make_train_step`` on qwen2.5-3b at its published config,
-    f32 master weights from seed 0, bf16 compute; a profile of one warm
+    f32 master weights from seed 0, bf16 compute, its memory against
+    ``predicted`` (``lm_train_prediction``); a profile of one warm
     step."""
     import torch
 
     from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.launch.cost import CostCounter
     from repro_torch.models import get_arch
     from repro_torch.runtime.steps import (
         init_train_state,
@@ -2607,13 +2683,35 @@ def lm_train_full(card: str) -> dict:
     step = make_train_step(cfg)
     schedule = make_lr_schedule(cfg)
     steps = []
+    phase_peak = 0
     for i in range(TRAIN_STEPS):
         batch = stream.batch_at(i)
         torch.cuda.synchronize()
+        if i < 2:
+            # step 0 is counted (the live bytes beside the FLOPs), step 1
+            # is not: each in a window of the allocator's peak of its own
+            phase_peak = max(phase_peak, torch.cuda.max_memory_allocated())
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            if i == 0:
+                held = torch.cuda.memory_allocated() - base
         t0 = time.perf_counter()
-        model, opt, met = step(model, opt, batch)
+        if i == 0:
+            with CostCounter(arguments=(model, opt)) as counter:
+                model, opt, met = step(model, opt, batch)
+        else:
+            model, opt, met = step(model, opt, batch)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        if i == 0:
+            live = counter.memory_analysis((model, opt, met))
+            counted_peak = torch.cuda.max_memory_allocated() - base
+        elif i == 1:
+            memory = memory_gaps(
+                "2l", predicted["memory"], live, counted_peak,
+                torch.cuda.max_memory_allocated() - base, held, card,
+                (predicted["flops"], counter.summary()["flops"]))
+            memory["meta_s"] = predicted["s"]
         met = {k: float(v) for k, v in met.items()}
         check(all(map(math.isfinite, met.values())),
               f"2l step {i}: non-finite metrics {met}")
@@ -2625,14 +2723,15 @@ def lm_train_full(card: str) -> dict:
                       **met})
         log(f"2l train {LM_ARCH} at full size, step {i} "
             f"({'cold' if i == 0 else 'warm'}): {dt:.3f} s, "
-            f"{steps[-1]['tokens_s']:.1f} tokens/s, loss {met['loss']:.4f}, "
+            f"{steps[-1]['tokens_s']:.1f} tokens/s{', counted' if i == 0 else ''}"
+            f", loss {met['loss']:.4f}, "
             f"grad norm {met['grad_norm']:.4f}, lr {met['lr']:.3e}, peak "
             f"{steps[-1]['peak_GB']:.2f} GB above the {base / 1e9:.2f} GB "
             f"earlier phases hold; card {card}")
     batch = stream.batch_at(TRAIN_STEPS)
     prof = profile_calls({"train step": lambda: step(model, opt, batch)},
                          host=("train step",), cpu_ops=False)["train step"]
-    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    peak = (max(phase_peak, torch.cuda.max_memory_allocated()) - base) / 1e9
     del model, opt, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2649,7 +2748,7 @@ def lm_train_full(card: str) -> dict:
             f"{h['function']} {h['share']:.2f}"
             for h in prof["host_cumulative_share"][:8]) + f"; card {card}")
     return {"params": n_params, "init_s": init_s, "state_GB": state_gb,
-            "earlier_GB": base / 1e9,
+            "earlier_GB": base / 1e9, "memory": memory,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
             "peak_GB": peak, "profile": prof}
 
@@ -2880,16 +2979,18 @@ def _flat_tree(tree, prefix=""):
         yield prefix, tree
 
 
-def lm_train_phase(kernels, launches: dict, card: str) -> dict:
-    """Phase 2l: training at full size, the card against the CPU, the
-    fault-tolerant trainer with lossless checkpoints."""
+def lm_train_phase(kernels, launches: dict, card: str,
+                   predicted: dict) -> dict:
+    """Phase 2l: training at full size (its step's memory against the
+    meta prediction), the card against the CPU, the fault-tolerant
+    trainer with lossless checkpoints."""
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out = {}
-    for name, fn in (("full", lambda: lm_train_full(card)),
+    for name, fn in (("full", lambda: lm_train_full(card, predicted)),
                      ("agreement", lambda: lm_train_agreement(card)),
                      ("trainer", lambda: lm_trainer(kernels, launches, card))):
         t0 = time.perf_counter()
@@ -2914,7 +3015,7 @@ ROI_REGIONS = {
 # 16-wide axis is the MoE's XP mode
 LM_DRY_CELL = ("mixtral-8x22b", "train_4k")
 LM_DRY_RANK0 = """
-import json, sys, time
+import gc, json, sys, time
 import torch
 from repro_torch.launch import dryrun
 from repro_torch.launch.cost import CostCounter
@@ -2925,7 +3026,14 @@ res = {}
 meta = dryrun.build_cell(arch, shape, False)
 want = {n: tuple(p.to_local().shape) for n, p in meta["model"].named_parameters()}
 res["dry_bytes"] = dryrun.cell_bytes(meta)
-del meta
+# and its memory analysis, counted on meta as the dry run counts it
+t0 = time.perf_counter()
+with CostCounter(arguments=dryrun.cell_arguments(meta)) as counter:
+    result = dryrun.run_step(meta)
+res["predicted"] = {"memory": counter.memory_analysis(result),
+                    "flops": counter.summary()["flops"],
+                    "s": time.perf_counter() - t0}
+del meta, result, counter
 torch.cuda.reset_peak_memory_stats()
 t0 = time.perf_counter()
 built = dryrun.build_cell(arch, shape, False, device_type="cuda",
@@ -2937,20 +3045,35 @@ res["n_leaves"] = len(got)
 res["shapes_equal"] = got == want
 res["bytes"] = dryrun.cell_bytes(built)
 res["local_params"] = sum(p.to_local().numel() for p in built["model"].parameters())
+res["build_peak_bytes"] = torch.cuda.max_memory_allocated()
 res["steps_s"] = []
-for rep in range(2):  # cold (its ops counted: the dry run's accounting), warm
+peaks = [res["build_peak_bytes"]]
+# cold (its ops and live bytes counted: the dry run's accounting) and warm
+# (not counted), each in a peak window of its own
+for rep in range(2):
     torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated())
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    if rep == 0:
+        res["held_before_step"] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     if rep == 0:
-        with CostCounter() as counter:
-            dryrun.run_step(built)
+        with CostCounter(arguments=dryrun.cell_arguments(built)) as counter:
+            result = dryrun.run_step(built)
     else:
         dryrun.run_step(built)
     torch.cuda.synchronize()
     res["steps_s"].append(time.perf_counter() - t0)
+    if rep == 0:
+        res["cold_peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["memory"] = counter.memory_analysis(result)
+        del result
+res["warm_peak_bytes"] = torch.cuda.max_memory_allocated()
 res["cost"] = counter.summary()
 res["roofline"], res["dominant"] = dryrun.roofline(res["cost"])
-res["peak_bytes"] = torch.cuda.max_memory_allocated()
+# build, cold and warm steps
+res["peak_bytes"] = max(*peaks, res["warm_peak_bytes"])
 res["step"] = int(built["opt"]["step"])
 open(out, "w").write(json.dumps(res))
 """
@@ -2964,7 +3087,9 @@ def lm_sharded_rank0(root: Path, card: str) -> dict:
     placed by ``launch.shardings`` with only rank 0's blocks on the card,
     one cold and one warm train step.  The fake group's collectives move
     nothing, so values are not checked; the local shapes must equal the
-    dry run's placement on ``meta``."""
+    dry run's placement on ``meta``, and each step's peak the dry run's
+    memory analysis of the cell, counted on ``meta`` in the same
+    subprocess."""
     out = root / "rank0.json"
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, "-c", LM_DRY_RANK0, *LM_DRY_CELL,
@@ -2977,10 +3102,20 @@ def lm_sharded_rank0(root: Path, card: str) -> dict:
                                "dry run's")
     check(len(res["steps_s"]) == 2 and res["step"] == 2,
           "2m (a): the train steps did not finish")
+    cell = res["predicted"]
+    res["memory_gaps"] = memory_gaps(
+        "2m (a)", cell["memory"], res["memory"], res["cold_peak_bytes"],
+        res["warm_peak_bytes"], res["held_before_step"], card,
+        (cell["flops"], res["cost"]["flops"]))
+    res["memory_gaps"]["meta_s"] = cell["s"]
     cost, terms = res["cost"], res["roofline"]
     log(f"2m (a) {'/'.join(LM_DRY_CELL)} rank 0 of 256: {res['local_params']} "
         f"local parameters ({res['n_leaves']} leaves, shapes = the dry run's); "
-        f"peak {res['peak_bytes'] / 1e9:.2f} GB against the dry run's "
+        f"peak {res['peak_bytes'] / 1e9:.2f} GB over the build and both "
+        f"steps (the cold step's {res['cold_peak_bytes'] / 1e9:.2f} GB, the "
+        f"warm step's {res['warm_peak_bytes'] / 1e9:.2f} GB, the "
+        f"dry run's prediction {cell['memory']['peak_memory_in_bytes'] / 1e9:.2f}"
+        f" GB) against the dry run's "
         f"{sum(res['dry_bytes'].values()) / 1e9:.2f} GB of arguments "
         f"({json.dumps(res['dry_bytes'])}); steps cold {res['steps_s'][0]:.2f} s "
         f"(counted), warm {res['steps_s'][1]:.2f} s against the dry run's "
@@ -3991,9 +4126,24 @@ def main() -> None:
         last[0] = now
         log(f"phase {name}: {phase_s[name]:.1f} s")
 
-    # ---- 1. build
+    # ---- 1. build, and beside it 2l's train step counted on meta (the
+    # memory prediction 2l holds against the card)
+    predicted: dict = {}
+
+    def count_on_meta():
+        try:
+            predicted.update(lm_train_prediction())
+        except Exception as e:  # noqa: BLE001  (raised after the join)
+            predicted["error"] = e
+
+    counting = threading.Thread(target=count_on_meta)
+    counting.start()
     build_s = kernels.build()
-    log(f"kernels built in {build_s:.1f} s")
+    counting.join()
+    if "error" in predicted:
+        raise predicted["error"]
+    log(f"kernels built in {build_s:.1f} s; 2l's train step counted on meta "
+        f"beside the build in {predicted['s']:.1f} s")
     phase_done("1 build")
 
     rec = Recorder(device_mod, (subbin_sweep, bitshuffle_kernel, rze_kernel),
@@ -4130,7 +4280,7 @@ def main() -> None:
 
     # ---- 2l. LM training: qwen2.5-3b at full size, the card against the
     # CPU, the trainer with lossless checkpoints (kernels 8 and 9)
-    lm_train = lm_train_phase(kernels, launches, card)
+    lm_train = lm_train_phase(kernels, launches, card, predicted)
     phase_done("2l LM training")
 
     # ---- 2m. the LM's distributed part: rank 0 of mixtral-8x22b's

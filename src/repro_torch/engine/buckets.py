@@ -11,8 +11,16 @@ batches larger than the cap split into chunks.
 Byte contract: classes only change how many masked dead tiles pad a
 device batch, and chunk boundaries never cross a request (compress) or a
 tile (decode), so bucketing never changes a request's container bytes.
+
+``BUCKET_COUNTS`` records every device batch by ``(kind, capacity)`` and
+``PAD_COUNTS`` the real/padded tile split (fed by the executor), so
+benches and the service metrics can report bucket occupancy and pad
+waste per load point.
 """
 from __future__ import annotations
+
+import threading
+from collections import Counter
 
 CAPACITY_FLOOR = 8
 
@@ -22,6 +30,10 @@ CAPACITY_FLOOR = 8
 # chunk of its own at the smallest class that holds it).
 MAX_DOUBLINGS = 4
 
+BUCKET_COUNTS: Counter = Counter()  # (kind, capacity) -> batches
+PAD_COUNTS: Counter = Counter()     # "real" / "padded" tile tallies
+_LOCK = threading.Lock()            # the service records from its threads
+
 
 def bucket_capacity(n_tiles: int, floor: int = CAPACITY_FLOOR) -> int:
     """Smallest capacity class ``floor * 2**k`` holding ``n_tiles``."""
@@ -30,6 +42,12 @@ def bucket_capacity(n_tiles: int, floor: int = CAPACITY_FLOOR) -> int:
     while cap < n_tiles:
         cap *= 2
     return cap
+
+
+def capacity_classes(floor: int = CAPACITY_FLOOR) -> tuple[int, ...]:
+    """The closed class set reachable by packed (non-oversize) batches."""
+    floor = max(4, floor)
+    return tuple(floor * 2**k for k in range(MAX_DOUBLINGS + 1))
 
 
 def packing_cap(floor: int = CAPACITY_FLOOR) -> int:
@@ -73,3 +91,21 @@ def plan_tile_chunks(n_tiles: int, floor: int = CAPACITY_FLOOR):
     base, extra = divmod(n_tiles, q)
     return [base + (1 if i < extra else 0) for i in range(q)]
 
+
+def record_batch(kind: str, n_real: int, capacity: int) -> None:
+    with _LOCK:
+        BUCKET_COUNTS[(kind, capacity)] += 1
+        PAD_COUNTS["real"] += n_real
+        PAD_COUNTS["padded"] += capacity - n_real
+
+
+def reset_bucket_counts() -> None:
+    with _LOCK:
+        BUCKET_COUNTS.clear()
+        PAD_COUNTS.clear()
+
+
+def pad_waste() -> float:
+    """Padded tiles per real tile since the last reset (0.0 when idle)."""
+    real = PAD_COUNTS["real"]
+    return PAD_COUNTS["padded"] / real if real else 0.0

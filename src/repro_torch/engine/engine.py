@@ -11,9 +11,8 @@ are byte-identical to the reference's and decoded values bit-identical.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; with no
 CUDA device it raises unless the caller asks for ``device="cpu"``, where
-the kernels' plain versions run.  Arguments outside this port's current
-slice raise ``NotImplementedError`` naming the ROADMAP.md row that
-brings them.
+the kernels' plain versions run.  Every argument of the reference's
+entry points works.
 
 Each device group runs under an ``engine.compress_group`` or
 ``engine.decode_group`` span (``repro_torch.obs``), the parent of the

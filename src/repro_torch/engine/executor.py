@@ -146,6 +146,17 @@ def reset_decode_counts() -> None:
     DECODE_COUNTS.clear()
 
 
+def decode_count(key: str = "tiles") -> int:
+    return DECODE_COUNTS[key]
+
+
+def transfer_count(*keys: str) -> int:
+    """The crossings counted under ``keys`` (all of them when none is
+    given)."""
+    return sum(TRANSFER_COUNTS[k] for k in keys) if keys else sum(
+        TRANSFER_COUNTS.values())
+
+
 def resident_capacity(n_tiles: int, floor: int = CAPACITY_FLOOR) -> int:
     """Resident-batch capacity class for a group of ``n_tiles`` tiles."""
     return buckets.bucket_capacity(n_tiles, floor)
@@ -310,6 +321,7 @@ class Executor:
                 del x_dev, eps_dev, tables
                 if spans:
                     fence(chunk[2:])
+            buckets.record_batch("compress", n_chunk, capacity)
             chunks.append(chunk)
             shards.append(shard)
 
@@ -506,6 +518,7 @@ class Executor:
                       words, batch: int):
         n = len(items)
         DECODE_COUNTS.add("batches")
+        buckets.record_batch("decode", n, batch)
         with span("exec.stream_prep", tiles=n, batch=batch):
             arrays = self.stage_rows(items, tile_elems, order, words, batch)
         up = sum(a.nbytes for a in arrays)

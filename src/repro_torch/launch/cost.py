@@ -21,9 +21,42 @@ device (``meta`` included, so a dry run needs no memory):
     (``distributed._collectives``) are counted.
 
 Everything is per device: the program is one rank's.
+
+The same pass also counts the bytes this rank holds over the step (``LiveBytes``; the port's counterpart of the
+reference's ``compiled.memory_analysis()``, which these figures are not
+claimed to equal): storages, not tensors, each counted once at its
+``untyped_storage().nbytes()`` rounded up to the CUDA caching
+allocator's 512-byte block, live from the op that made it until its last
+tensor dies (a ``weakref.finalize`` on the storage).  Views and in-place
+results share a storage and add nothing; a DTensor counts its local
+block.  ``memory_analysis(result)`` returns the reference's keys:
+
+  * ``argument_size_in_bytes``: the storages registered before the step
+    (parameters, optimizer state, batch, caches), plus any operand
+    storage that no op of the step made (a tensor alive before the step
+    that was not registered; counted as live from the start),
+  * ``output_size_in_bytes``: the distinct storages of ``result`` (a
+    module stands for its parameters and buffers),
+  * ``alias_size_in_bytes``: those output storages that are argument
+    storages (updates and caches written in place),
+  * ``peak_memory_in_bytes``: the highest live total over the step,
+    arguments included, read after each op's results exist and before
+    its operands can die,
+  * ``temp_size_in_bytes``: peak - argument - (output - alias),
+  * ``generated_code_size_in_bytes``: ``None`` (eager mode generates no
+    code; ``generated_code_reason`` says so).
+
+Tensors a step makes outside the dispatcher (``torch.tensor`` of Python
+numbers, ``torch.from_numpy``) appear at their ``lift_fresh`` and count
+from there.  Buffers a kernel allocates for itself (cuBLAS workspaces,
+a library's scratch) and a process group's own buffers never reach the
+dispatcher and are not counted.  Storages on every device count, the
+host's included (a device step keeps a few scalars there).
 """
 from __future__ import annotations
 
+import threading
+import weakref
 from collections import Counter
 
 import torch
@@ -44,6 +77,11 @@ _COLLECTIVES = {
 }
 _FREE = {"empty", "empty_like", "empty_strided", "wait_tensor",
          "_wrap_tensor_autograd", "detach", "lift_fresh"}
+# ops that hand a tensor made outside the dispatcher to it
+_LIFT = {"lift_fresh", "lift_fresh_copy"}
+# the CUDA caching allocator rounds every block up to this many bytes
+ALLOC_ROUND = 512
+NO_GENERATED_CODE = "eager PyTorch generates no code: nothing is compiled"
 
 
 def ring_bytes(kind: str, out_bytes: float, g: int) -> float:
@@ -87,20 +125,130 @@ def _is_view(func) -> bool:
             and any(r.alias_info is not None for r in schema.returns))
 
 
+def _tensors(tree):
+    """The tensors of a tree of dicts, lists, tuples and modules (a
+    module's parameters and buffers), DTensors as their local blocks."""
+    if isinstance(tree, torch.nn.Module):
+        yield from (_local(t) for t in tree.parameters())
+        yield from (_local(t) for t in tree.buffers())
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield _local(tree)
+
+
+def _storage(t):
+    try:
+        return t.untyped_storage()
+    except (RuntimeError, NotImplementedError):  # no storage (a wrapper)
+        return None
+
+
+def _rounded(nbytes: int) -> int:
+    return -(-nbytes // ALLOC_ROUND) * ALLOC_ROUND
+
+
+class LiveBytes:
+    """The storages one rank holds and their high-water mark (see the
+    module docstring).  Frees arrive from whichever thread drops a
+    storage's last tensor (on CUDA, autograd's), so updates hold a
+    lock."""
+
+    def __init__(self, arguments=()):
+        self._lock = threading.RLock()
+        self._size: dict[int, int] = {}   # live storage -> rounded bytes
+        self._args: set[int] = set()      # live argument storages
+        self.live = 0
+        self.peak = 0
+        self.argument_bytes = 0
+        for t in _tensors(arguments):
+            self._add(_storage(t), argument=True)
+
+    def _add(self, st, *, argument: bool = False) -> None:
+        """Start counting ``st`` if it is new (an argument is counted as
+        live from the start: the peak so far rises with it)."""
+        if st is None:
+            return
+        key = st._cdata
+        with self._lock:
+            old = self._size.get(key)
+            n = _rounded(st.nbytes())
+            if old is not None:
+                if old != n:  # resized in place
+                    self._size[key] = n
+                    self.live += n - old
+                    self.peak = max(self.peak, self.live)
+                return
+            self._size[key] = n
+            self.live += n
+            if argument:
+                self._args.add(key)
+                self.argument_bytes += n
+                self.peak += n
+            self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key).atexit = False
+
+    def _free(self, key: int) -> None:
+        with self._lock:
+            self.live -= self._size.pop(key, 0)
+            self._args.discard(key)
+
+    def observe(self, func, args, kwargs, out) -> None:
+        """Account one op: operand storages no op made are arguments
+        (or, under ``lift_fresh``, made just now), result storages that
+        are new were allocated by it."""
+        lift = func._overloadpacket.__name__ in _LIFT
+        for t in tree_flatten((args, kwargs))[0]:
+            if isinstance(t, torch.Tensor):
+                self._add(_storage(_local(t)), argument=not lift)
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                self._add(_storage(_local(t)))
+
+    def analysis(self, result=None) -> dict:
+        """The reference's ``memory_analysis`` keys for a step that
+        returned ``result``."""
+        seen: dict[int, int] = {}
+        for t in _tensors(result):
+            st = _storage(t)
+            if st is not None:
+                seen[st._cdata] = _rounded(st.nbytes())
+        with self._lock:
+            alias = sum(n for k, n in seen.items() if k in self._args)
+            peak, arg = self.peak, self.argument_bytes
+        out = sum(seen.values())
+        return {"argument_size_in_bytes": arg,
+                "output_size_in_bytes": out,
+                "alias_size_in_bytes": alias,
+                "temp_size_in_bytes": peak - arg - (out - alias),
+                "peak_memory_in_bytes": peak,
+                "generated_code_size_in_bytes": None,
+                "generated_code_reason": NO_GENERATED_CODE}
+
+
 class CostCounter(TorchDispatchMode):
     """Counts this rank's FLOPs, HBM bytes and collective bytes while
-    active (``with CostCounter() as c: ...``, then ``c.summary()``)."""
+    active (``with CostCounter() as c: ...``, then ``c.summary()``), and
+    the live bytes in the same pass (``c.memory_analysis(result)``);
+    ``arguments`` are the tensors, modules and trees the step reads,
+    built before it."""
 
-    def __init__(self):
+    def __init__(self, arguments=()):
         super().__init__()
         self.flops = 0.0
         self.hbm_bytes = 0.0
         self.collective_bytes = 0.0
         self.collective_counts: Counter = Counter()
+        self.memory = LiveBytes(arguments)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        self.memory.observe(func, args, kwargs, out)
         name = func._overloadpacket.__name__
         if name in _FREE or _is_view(func):
             return out
@@ -131,3 +279,8 @@ class CostCounter(TorchDispatchMode):
                 "collective_bytes": self.collective_bytes,
                 "collective_counts": {k: int(v) for k, v
                                       in sorted(self.collective_counts.items())}}
+
+    def memory_analysis(self, result=None) -> dict:
+        """The live-byte keys (module docstring) of the step that returned
+        ``result``."""
+        return self.memory.analysis(result)

@@ -6,22 +6,30 @@ cache with ``launch.shardings`` on the production mesh of a fake process
 group of 256 (single) or 512 (multi) ranks made in this process, runs
 rank 0's train step, prefill, encode or decode under
 ``launch.cost.CostCounter``, and records the per-device bytes, the
-counted FLOPs, HBM bytes and collective bytes, ``model_flops`` and the
-roofline terms on an H100.  The fake group's collectives move nothing;
-every op runs on ``meta``.
+counted FLOPs, HBM bytes and collective bytes, ``model_flops``, the
+roofline terms on an H100 and the memory analysis: the reference's six
+``memory_analysis`` keys, counted on ``meta`` by the same pass (their
+definitions are ``launch.cost``'s; ``counted_on`` says ``meta``).  The
+fake group's collectives move nothing; every op runs on ``meta``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k --mesh single
-  python -m repro_torch.launch.dryrun --all               # every cell, both meshes
+  python -m repro_torch.launch.dryrun --all --jobs 4      # every cell, both meshes
   python -m repro_torch.launch.dryrun --all --mesh multi  # the 2-pod pass only
 
 Records go to ``--out`` (default ``build/dryrun_torch/``), one JSON file
-a cell, ``{arch}__{shape}__{mesh}.json``.
+a cell, ``{arch}__{shape}__{mesh}.json``.  ``--all`` runs each cell in
+a subprocess of its own, ``--jobs`` at a time, and skips the cells
+already recorded ``ok`` or ``skipped`` (so a second run resumes); an
+``ok`` record without the memory analysis's peak is run again.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
+import sys
 import time
 import traceback
 from pathlib import Path
@@ -35,9 +43,6 @@ PEAK_FLOPS = 989.4e12     # bf16 dense FLOP/s per GPU
 HBM_BW = 3.35e12          # bytes/s per GPU (HBM3)
 NVLINK_BW = 450e9         # bytes/s per GPU per direction (NVLink 4, 18 links)
 
-NO_MEMORY_ANALYSIS = ("eager PyTorch has no counterpart of XLA's "
-                      "memory_analysis: temporary and peak bytes are not "
-                      "computed on meta")
 
 
 def model_flops(cfg, seq: int, batch: int, kind: str) -> float:
@@ -185,6 +190,11 @@ def run_step(built: dict):
             return model.decode_step(built["batch"]["tokens"], built["caches"])
 
 
+def cell_arguments(built: dict) -> tuple:
+    """What rank 0's step of a built cell reads, built before it."""
+    return (built["model"], built["opt"], built["batch"], built["caches"])
+
+
 def cell_bytes(built: dict) -> dict:
     """Per-device bytes of the cell's arguments."""
     model = built["model"]
@@ -217,8 +227,10 @@ def run_cell(arch: str, shape: str, mesh_kind: str) -> dict:
             rec.update(status="skipped", reason=built["reason"])
             return rec
         args = cell_bytes(built)
-        with CostCounter() as counter:
-            run_step(built)
+        with CostCounter(arguments=cell_arguments(built)) as counter:
+            result = run_step(built)
+        memory = counter.memory_analysis(result)
+        del result
     except Exception as e:  # noqa: BLE001
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-4000:])
@@ -232,9 +244,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str) -> dict:
         kind=built["kind"],
         seconds=round(time.time() - t0, 1),
         bytes_per_device=args,
-        memory={"argument_size_in_bytes": sum(args.values()),
-                "temp_size_in_bytes": None, "peak_memory_in_bytes": None,
-                "reason": NO_MEMORY_ANALYSIS},
+        memory={**memory, "counted_on": "meta"},
         flops_per_device=cost["flops"],
         hbm_bytes_per_device=cost["hbm_bytes"],
         collective_bytes_per_device=cost["collective_bytes"],
@@ -251,35 +261,87 @@ def run_cell(arch: str, shape: str, mesh_kind: str) -> dict:
     return rec
 
 
+def _record(out_dir: Path, arch: str, shape: str, mesh: str) -> Path:
+    return out_dir / f"{arch}__{shape}__{mesh}.json"
+
+
+def _status(path: Path):
+    """A record's status; ``None`` for none, or for an ``ok`` record made
+    before the memory analysis (its peak is not an integer)."""
+    try:
+        rec = json.loads(path.read_text())
+    except (OSError, ValueError):
+        return None
+    if rec.get("status") == "ok" and not isinstance(
+            rec.get("memory", {}).get("peak_memory_in_bytes"), int):
+        return None
+    return rec.get("status")
+
+
+def run_all(meshes, out_dir: Path, jobs: int) -> int:
+    """Every cell not yet recorded ``ok`` or ``skipped``, one subprocess a
+    cell (the fake group of 256/512 ranks is process-wide), ``jobs`` at a
+    time; returns the number of cells that failed."""
+    from ..models.registry import ARCHITECTURES, SHAPES
+
+    todo = [(a, s, m) for a in ARCHITECTURES for s in SHAPES for m in meshes
+            if _status(_record(out_dir, a, s, m)) not in ("ok", "skipped")]
+    print(f"{len(todo)} cells to run", flush=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parents[2])]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    running: list[tuple[subprocess.Popen, tuple]] = []
+    failures = 0
+    while todo or running:
+        while todo and len(running) < jobs:
+            arch, shape, m = cell = todo.pop(0)
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh", m,
+                   "--out", str(out_dir)]
+            running.append((subprocess.Popen(cmd, env=env,
+                                             stdout=subprocess.DEVNULL,
+                                             stderr=subprocess.DEVNULL), cell))
+            print(f"started {arch} {shape} {m}", flush=True)
+        time.sleep(0.5)
+        still = []
+        for proc, cell in running:
+            if proc.poll() is None:
+                still.append((proc, cell))
+                continue
+            status = _status(_record(out_dir, *cell)) or "missing"
+            failures += status not in ("ok", "skipped")
+            print(f"finished {cell} -> {status}", flush=True)
+        running = still
+    return failures
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default="both")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--jobs", type=int, default=2,
+                    help="cells run at a time by --all")
     ap.add_argument("--out", default=str(DEFAULT_OUT))
     args = ap.parse_args(argv)
-    from ..models.registry import ARCHITECTURES, SHAPES
-
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     if args.all:
-        cells = [(a, s) for a in ARCHITECTURES for s in SHAPES]
-    else:
-        if not (args.arch and args.shape):
-            ap.error("--arch and --shape (or --all)")
-        cells = [(args.arch, args.shape)]
+        failures = run_all(meshes, out_dir, max(1, args.jobs))
+        print(f"done; {failures} failures", flush=True)
+        return failures
+    if not (args.arch and args.shape):
+        ap.error("--arch and --shape (or --all)")
     failures = 0
     for m in meshes:  # one fake group a mesh
-        for arch, shape in cells:
-            rec = run_cell(arch, shape, m)
-            (out_dir / f"{arch}__{shape}__{m}.json").write_text(
-                json.dumps(rec, indent=2))
-            failures += rec["status"] not in ("ok", "skipped")
-            print(json.dumps({k: v for k, v in rec.items()
-                              if k not in ("traceback", "hardware")}), flush=True)
-    print(f"done; {failures} failures", flush=True)
+        rec = run_cell(args.arch, args.shape, m)
+        _record(out_dir, args.arch, args.shape, m).write_text(
+            json.dumps(rec, indent=2))
+        failures += rec["status"] not in ("ok", "skipped")
+        print(json.dumps({k: v for k, v in rec.items()
+                          if k not in ("traceback", "hardware")}), flush=True)
     return failures
 
 

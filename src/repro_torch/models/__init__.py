@@ -6,8 +6,9 @@ device=...)`` holds one config's weights, serves through ``prefill`` and
 reference's remat; ``repro_torch.runtime`` holds the train step);
 ``convert`` carries the reference's parameter pytree, AdamW state and
 cache layout across.  All math uses explicit dtypes (bf16 compute, f32
-accumulation), op for op as the reference.  The reference's sharding
-rules are not ported yet (ROADMAP.md module queue row 15c).
+accumulation), op for op as the reference.  On parameters placed as
+DTensors by ``repro_torch.launch.shardings`` every layer runs sharded
+(``parallel``), under the reference's sharding rules.
 """
 from .config import ModelConfig, MoEConfig, reduced_for_smoke
 from .registry import ARCHITECTURES, get_arch

@@ -1,9 +1,9 @@
 """Input specs and dummy batches for the serving cells (port of
 ``repro.models.inputs``).
 
-Specs are plain ``(shape, dtype)`` tuples; ``dummy_batch`` draws the
-reference's numpy values in the reference's order, so both packages see
-the same batch.  Modality frontends are stubs: hubert gets precomputed
+Batch specs are plain ``(shape, dtype)`` tuples and the decode token a
+``meta`` tensor; ``dummy_batch`` draws the reference's numpy values in
+the reference's order, so both packages see the same batch.  Modality frontends are stubs: hubert gets precomputed
 frame embeddings, llava precomputed patch embeddings.
 """
 from __future__ import annotations
@@ -34,6 +34,12 @@ def train_batch_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
         "labels": ((batch, seq), "int32"),
         "mask": ((batch, seq), "float32"),
     }
+
+
+def decode_token_specs(cfg: ModelConfig, batch: int) -> torch.Tensor:
+    """The decode step's token input: a ``meta`` tensor of its shape and
+    dtype (the reference's ``ShapeDtypeStruct``)."""
+    return torch.empty((batch,), dtype=torch.int32, device="meta")
 
 
 def dummy_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0) -> dict:

@@ -6,7 +6,8 @@ reference's specs and ``hlo_parse``.
   both production meshes: the per-device bytes of the parameters, the
   AdamW state and the caches rank 0 holds equal the bytes the
   reference's specs give each device (on a ``jax.sharding.AbstractMesh``).
-- A whole cell (qwen2.5-3b decode_32k, single mesh) runs and records.
+- A whole cell (qwen2.5-3b decode_32k, single mesh) runs and records,
+  its memory analysis included (the caches aliased).
 - ``CostCounter``'s dot FLOPs of the reduced qwen2.5-3b's prefill on one
   device are within 1% of ``hlo_parse.analyze`` on the reference's
   CPU-compiled prefill.
@@ -136,7 +137,11 @@ def test_a_cell_runs_and_records(fake_group, tmp_path):
     # layer gathers them
     assert rec["collective_counts"]["all-gather"] > 0
     assert rec["dominant"] in rec["roofline"]
-    assert rec["memory"]["temp_size_in_bytes"] is None and rec["memory"]["reason"]
+    mem = rec["memory"]
+    assert mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"]
+    assert mem["temp_size_in_bytes"] >= 0
+    # the K/V caches are written in place: they are aliased outputs
+    assert mem["alias_size_in_bytes"] >= rec["bytes_per_device"]["cache"] > 0
     # the reference's committed records are untouched
     assert sorted((ROOT / "benchmarks" / "results").rglob("*")) == before
     assert dryrun.DEFAULT_OUT == ROOT / "build" / "dryrun_torch"
