@@ -17,7 +17,15 @@ entry points works.
 Each device group runs under an ``engine.compress_group`` or
 ``engine.decode_group`` span (``repro_torch.obs``), the parent of the
 executor's stage spans; ``group_cb`` receives one summary dict per group
-(the service's occupancy and bucket metrics).
+(the service's occupancy and bucket metrics).  The engine's host work
+has spans of its own, which the reference does not open: a compress
+opens ``engine.plan`` (the requests' validation, range and bin width,
+the executor pick and the grouping) and, in each group,
+``engine.tile`` (the haloed tile batch) and ``engine.serialize`` (the
+per-tile sections and the containers); a decode opens ``engine.parse``
+(the containers read, and each group's tile work list) and, for whole
+fields and regions, ``engine.assemble``.  They open in the entry points
+only, so a frame chain, which calls the helpers itself, opens none.
 """
 from __future__ import annotations
 
@@ -229,16 +237,19 @@ def compress_many(fields, eb, mode: str = "noa", preserve_order: bool = True,
     ebs = list(eb) if np.ndim(eb) else [eb] * len(fields)
     if len(ebs) != len(fields):
         raise ValueError("eb must be a scalar or one bound per field")
-    reqs = [_Request(x, e, mode, plan, adaptive_eb, dev)
-            for x, e in zip(fields, ebs)]
-    ex = (Executor(plan, dev, encode_path, put) if put is not None
-          else default_executor(plan, dev, encode_path))
+    with span("engine.plan", fields=len(fields)) as sp:
+        reqs = [_Request(x, e, mode, plan, adaptive_eb, dev)
+                for x, e in zip(fields, ebs)]
+        ex = (Executor(plan, dev, encode_path, put) if put is not None
+              else default_executor(plan, dev, encode_path))
 
-    groups: dict[tuple, list[int]] = {}
-    for i, r in enumerate(reqs):
-        groups.setdefault(
-            (np.dtype(r.x.dtype), r.layout.tile, r.bins_store, r.adaptive),
-            []).append(i)
+        groups: dict[tuple, list[int]] = {}
+        for i, r in enumerate(reqs):
+            groups.setdefault(
+                (np.dtype(r.x.dtype), r.layout.tile, r.bins_store, r.adaptive),
+                []).append(i)
+        sp.set_tag("tiles", sum(r.layout.n_tiles for r in reqs))
+        sp.set_tag("nbytes_in", sum(r.x.nbytes for r in reqs))
 
     blobs: list[bytes | None] = [None] * len(reqs)
     stats: list[CompressStats | None] = [None] * len(reqs)
@@ -269,55 +280,60 @@ def _compress_group(reqs, dtype, ex, preserve_order, out, members,
     nan = np.asarray(np.nan, dtype)
     x_tiles, eps_tiles, ranges = [], [], []
     n_total = 0
-    for r in reqs:
-        x_pb = padded_with_border(r.x.reshape(r.layout.canonical), r.layout, nan)
-        x_tiles.append(extract_halo_tiles(x_pb, r.layout))
-        eps_tiles.append(r.eps_tiles())
-        ranges.append((n_total, n_total + r.layout.n_tiles))
-        n_total += r.layout.n_tiles
+    with span("engine.tile", fields=len(reqs)) as sp:
+        for r in reqs:
+            x_pb = padded_with_border(r.x.reshape(r.layout.canonical), r.layout, nan)
+            x_tiles.append(extract_halo_tiles(x_pb, r.layout))
+            eps_tiles.append(r.eps_tiles())
+            ranges.append((n_total, n_total + r.layout.n_tiles))
+            n_total += r.layout.n_tiles
+        x_all, eps_all = np.concatenate(x_tiles), np.concatenate(eps_tiles)
+        sp.set_tag("tiles", n_total)
+        sp.set_tag("nbytes_out", x_all.nbytes + eps_all.nbytes)
 
     gs = ex.compress_tiles(
-        np.concatenate(x_tiles), np.concatenate(eps_tiles),
-        tuple(r.layout for r in reqs), dtype, preserve_order,
+        x_all, eps_all, tuple(r.layout for r in reqs), dtype, preserve_order,
         bins_store=reqs[0].bins_store, adaptive=reqs[0].adaptive)
 
-    # per-request solver diagnostics (sweeps are never serialized)
-    if preserve_order:
-        for r, (lo, hi) in zip(reqs, ranges):
-            local = int(gs.local_sweeps[lo:hi].max(initial=0))
-            rounds = int(gs.last_round[lo:hi].max(initial=0))
-            r.sweeps = local + max(0, rounds - 1)
+    with span("engine.serialize", fields=len(reqs), tiles=n_total) as sp:
+        # per-request solver diagnostics (sweeps are never serialized)
+        if preserve_order:
+            for r, (lo, hi) in zip(reqs, ranges):
+                local = int(gs.local_sweeps[lo:hi].max(initial=0))
+                rounds = int(gs.last_round[lo:hi].max(initial=0))
+                r.sweeps = local + max(0, rounds - 1)
 
-    bins_sections = _serialize_tile_sections(gs.bins, n_total, gs.bins_cpt)
-    if preserve_order:
-        sub_sections = _serialize_tile_sections(gs.subs, n_total, gs.subs_cpt)
-    else:
-        sub_sections = [b""] * n_total
-    for r, (lo, hi), i in zip(reqs, ranges, members):
-        flags = FLAG_ORDER_PRESERVING if preserve_order else 0
-        extra = {}
-        if r.nonfinite is not None:
-            flags |= FLAG_HAS_NONFINITE
-            extra[bitstream.TAG_NONFINITE] = r.nonfinite
-        if r.adaptive:
-            flags |= FLAG_ADAPTIVE_EB
-            extra[bitstream.TAG_EB_LADDER] = \
-                bitstream.serialize_eb_ladder(r.ladder)
-        header = bitstream.Header(
-            dtype=np.dtype(dtype), shape=r.x.shape, eb_mode=r.mode,
-            eb=r.eb, eps_abs=float(r.eps_abs), flags=flags)
-        tiles = list(zip(bins_sections[lo:hi], sub_sections[lo:hi]))
-        blob = bitstream.write_container_v2(
-            header, r.layout.tile, r.layout.grid, tiles, extra)
-        blobs[i] = blob
-        if return_stats:
-            bin_bytes = sum(len(b) for b, _ in tiles)
-            subbin_bytes = sum(len(s) for _, s in tiles)
-            stats[i] = CompressStats(
-                raw_bytes=r.x.nbytes, total_bytes=len(blob),
-                bin_bytes=bin_bytes, subbin_bytes=subbin_bytes,
-                header_bytes=len(blob) - bin_bytes - subbin_bytes,
-                n_sweeps=r.sweeps, eps_abs=float(r.eps_abs))
+        bins_sections = _serialize_tile_sections(gs.bins, n_total, gs.bins_cpt)
+        if preserve_order:
+            sub_sections = _serialize_tile_sections(gs.subs, n_total, gs.subs_cpt)
+        else:
+            sub_sections = [b""] * n_total
+        for r, (lo, hi), i in zip(reqs, ranges, members):
+            flags = FLAG_ORDER_PRESERVING if preserve_order else 0
+            extra = {}
+            if r.nonfinite is not None:
+                flags |= FLAG_HAS_NONFINITE
+                extra[bitstream.TAG_NONFINITE] = r.nonfinite
+            if r.adaptive:
+                flags |= FLAG_ADAPTIVE_EB
+                extra[bitstream.TAG_EB_LADDER] = \
+                    bitstream.serialize_eb_ladder(r.ladder)
+            header = bitstream.Header(
+                dtype=np.dtype(dtype), shape=r.x.shape, eb_mode=r.mode,
+                eb=r.eb, eps_abs=float(r.eps_abs), flags=flags)
+            tiles = list(zip(bins_sections[lo:hi], sub_sections[lo:hi]))
+            blob = bitstream.write_container_v2(
+                header, r.layout.tile, r.layout.grid, tiles, extra)
+            blobs[i] = blob
+            if return_stats:
+                bin_bytes = sum(len(b) for b, _ in tiles)
+                subbin_bytes = sum(len(s) for _, s in tiles)
+                stats[i] = CompressStats(
+                    raw_bytes=r.x.nbytes, total_bytes=len(blob),
+                    bin_bytes=bin_bytes, subbin_bytes=subbin_bytes,
+                    header_bytes=len(blob) - bin_bytes - subbin_bytes,
+                    n_sweeps=r.sweeps, eps_abs=float(r.eps_abs))
+        sp.set_tag("nbytes_out", sum(len(blobs[i]) for i in members))
 
 
 def compress(field, eb, mode="noa", preserve_order=True, solver="auto",
@@ -401,15 +417,17 @@ def _decode_runs(runs, plan, dev, group_cb=None):
                 "tile_batches": _decode_batches(n_tiles, plan),
             })
         items, spans = [], []
-        for i in members:
-            c, layout, tile_ids = runs[i]
-            eps_eff = effective_eps(c.header.eps_abs)
-            # per-tile eb-ladder scaling (all-zero for uniform containers)
-            ladder = c.eb_ladder()
-            start = len(items)
-            items.extend((c, t, eps_eff * 2.0 ** -int(ladder[t]))
-                         for t in tile_ids)
-            spans.append((i, start, len(items)))
+        with span("engine.parse", fields=len(members)) as sp:
+            for i in members:
+                c, layout, tile_ids = runs[i]
+                eps_eff = effective_eps(c.header.eps_abs)
+                # per-tile eb-ladder scaling (all-zero for uniform containers)
+                ladder = c.eb_ladder()
+                start = len(items)
+                items.extend((c, t, eps_eff * 2.0 ** -int(ladder[t]))
+                             for t in tile_ids)
+                spans.append((i, start, len(items)))
+            sp.set_tag("tiles", len(items))
         with span("engine.decode_group", dtype=str(dtype), tile=list(tile),
                   n_requests=len(members), n_tiles=len(items)):
             values = ex.decode_items(items, tile, dtype, order, words)
@@ -451,9 +469,11 @@ def decode_tiles_many(runs, plan: CompressionPlan | None = None,
     _check_decode_path(decode_path)
     dev = resolve_device(device)
     parsed = []
-    for reader, tile_ids in runs:
-        c = _as_container(reader)
-        parsed.append((c, container_layout(c), list(tile_ids)))
+    with span("engine.parse", fields=len(runs)) as sp:
+        for reader, tile_ids in runs:
+            c = _as_container(reader)
+            parsed.append((c, container_layout(c), list(tile_ids)))
+        sp.set_tag("tiles", sum(len(t) for _, _, t in parsed))
     return _decode_runs(parsed, plan or DEFAULT_PLAN, dev, group_cb)
 
 
@@ -492,13 +512,19 @@ def decompress_many(blobs, plan: CompressionPlan | None = None,
     dev = resolve_device(device)
     plan = plan or DEFAULT_PLAN
     parsed = []
-    for b in blobs:
-        c = bitstream.read_container_v2(b)
-        layout = container_layout(c)
-        parsed.append((c, layout, list(range(layout.n_tiles))))
+    with span("engine.parse", fields=len(blobs)) as sp:
+        for b in blobs:
+            c = bitstream.read_container_v2(b)
+            layout = container_layout(c)
+            parsed.append((c, layout, list(range(layout.n_tiles))))
+        sp.set_tag("tiles", sum(p[1].n_tiles for p in parsed))
+        sp.set_tag("nbytes_in", sum(len(b) for b in blobs))
     values = _decode_runs(parsed, plan, dev, group_cb)
-    return [_assemble_field(v, c, layout)
-            for v, (c, layout, _) in zip(values, parsed)]
+    with span("engine.assemble", fields=len(parsed)) as sp:
+        out = [_assemble_field(v, c, layout)
+               for v, (c, layout, _) in zip(values, parsed)]
+        sp.set_tag("nbytes_out", sum(a.nbytes for a in out))
+    return out
 
 
 def decompress_roi(blob: bytes, region: tuple[slice, ...],
@@ -519,11 +545,16 @@ def decompress_roi(blob: bytes, region: tuple[slice, ...],
     _check_decode_path(decode_path)
     if bitstream.container_version(blob) == bitstream.VERSION_CHAIN:
         return _roi_from_chain(blob, region, plan or DEFAULT_PLAN, device)
-    c = bitstream.read_container_v2(blob)
-    layout = container_layout(c)
-    tile_ids = tiles_for_region(layout, region)
+    with span("engine.parse", fields=1, nbytes_in=len(blob)) as sp:
+        c = bitstream.read_container_v2(blob)
+        layout = container_layout(c)
+        tile_ids = tiles_for_region(layout, region)
+        sp.set_tag("tiles", len(tile_ids))
     values = decode_tiles_for_region(c, tile_ids, plan, decode_path, device)
-    return region_from_tiles(c, layout, region, dict(zip(tile_ids, values)))
+    with span("engine.assemble", fields=1, tiles=len(tile_ids)) as sp:
+        out = region_from_tiles(c, layout, region, dict(zip(tile_ids, values)))
+        sp.set_tag("nbytes_out", out.nbytes)
+    return out
 
 
 def _roi_from_chain(blob: bytes, region: tuple[slice, ...],

@@ -33,15 +33,23 @@ compaction and its totals fetch; the port's wraps its counterpart, the
 word- and byte-level compaction (``device.compact_streams``) and the one
 totals fetch.  A decode batch opens ``exec.stream_prep`` (the host's
 section parse), ``exec.decode`` (the upload and the kernel) and
-``exec.download``.  While tracing is enabled each stage fences its
-outputs (``obs.fence``), so a span measures device time; disabled, the
-spans are one shared no-op and no stage synchronizes.  A frame chain's
-step opens none, as in the reference.
+``exec.download``.  The port adds three host stages the reference does
+not have: ``exec.pad`` (a batch's pad rows joined to its tiles and
+eps), ``exec.restore`` (inside ``exec.download``: the host's restore of
+the downloaded streams to the serializer's form) and ``exec.concat``
+(the join of a decode's batches).  Every stage opens through
+``obs.stage`` on the executor's device: on a CUDA device it records a
+timing event on the current stream at each edge, which becomes the
+span's ``device_us`` tag when the spans are read, so no stage
+synchronizes for tracing; disabled, the spans are one shared no-op.  A
+frame chain's step opens none, as in the reference.
 
 ``TRANSFER_COUNTS`` counts host<->device crossings by category
 (``h2d_tiles``, ``h2d_aux``, ``d2h_aux``, ``d2h_round`` — the one
 boolean read back per halo round —, ``d2h_sections``, ``h2d_sections``,
-``d2h_values``) plus ``bytes_h2d`` / ``bytes_d2h``, and
+``d2h_values``) plus ``bytes_h2d`` / ``bytes_d2h``, ``bytes_h2d_pad``
+(the part of ``bytes_h2d`` that is pad rows of a compress batch: its
+tiles, eps, halo index and mask rows past the batch's real tiles), and
 ``bytes_d2h_byte_level_saved``: the bytes the byte-level form of the
 compacted runs saved against word-level compaction alone (the
 reference's form); ``DECODE_COUNTS``
@@ -83,7 +91,8 @@ from ..codecs import rze
 from ..codecs.transforms import NP_UNSIGNED
 from ..core import bitstream
 from ..core.quantize import bin_dtype_for
-from ..obs import REGISTRY, CounterView, fence, span
+from ..obs import REGISTRY, CounterView
+from ..obs import stage as device_stage
 from ..obs.trace import NOOP_SPAN
 from . import buckets, device, halo
 from .plan import CompressionPlan, TileLayout
@@ -218,6 +227,10 @@ class Executor:
                              f"runs on {self.device}")
         return t
 
+    def _stage(self, name: str, **tags):
+        """A stage span on this executor's device (``obs.stage``)."""
+        return device_stage(name, self.device, **tags)
+
     def _shard(self, capacity: int):
         """This rank's block of a batch of ``capacity`` tiles when ``put``
         shards batches (``distributed.TilePut``), else ``None``: the batch
@@ -253,8 +266,7 @@ class Executor:
         """
         # a chain step (the only caller that keeps its bins) opens no
         # stage spans, as in the reference
-        spans = not keep_bins
-        stage = span if spans else _no_span
+        stage = _no_span if keep_bins else self._stage
         layout0 = layouts[0]
         n_total = x_tiles.shape[0]
         tdt = _TORCH_DTYPE[np.dtype(dtype)]
@@ -285,31 +297,36 @@ class Executor:
             xc, ec = x_tiles[r0:r1], eps_tiles[r0:r1]
             pad = capacity - n_chunk
             if pad:
-                xc = np.concatenate([
-                    xc, np.full((pad,) + xc.shape[1:], np.nan, xc.dtype)])
-                ec = np.concatenate([ec, np.ones(pad, np.float64)])
+                with stage("exec.pad", tiles=n_chunk, rows=pad):
+                    xc = np.concatenate([
+                        xc, np.full((pad,) + xc.shape[1:], np.nan, xc.dtype)])
+                    ec = np.concatenate([ec, np.ones(pad, np.float64)])
             # a sharded batch uploads only this rank's block of rows
             shard = self._shard(capacity)
-            rows = slice(None) if shard is None else slice(shard.lo, shard.hi)
-            xc, ec = xc[rows], ec[rows]
+            b0, b1 = (0, capacity) if shard is None else (shard.lo, shard.hi)
+            xc, ec = xc[b0:b1], ec[b0:b1]
+            # the uploaded rows past the batch's real tiles
+            pad_up = max(0, b1 - max(b0, n_chunk))
             TRANSFER_COUNTS.add("h2d_tiles")
             TRANSFER_COUNTS.add("h2d_aux")
             TRANSFER_COUNTS.add("bytes_h2d", xc.nbytes + ec.nbytes)
+            TRANSFER_COUNTS.add("bytes_h2d_pad",
+                                pad_up * (xc[:1].nbytes + ec[:1].nbytes))
             with stage("exec.upload", tiles=n_chunk, capacity=capacity,
                        nbytes=xc.nbytes):
                 x_dev, eps_dev = self._put(xc), self._put(ec)
                 tables = ()
                 if preserve_order:
                     idx, mask = halo.group_index(layouts[lo:hi], capacity)
-                    idx, mask = idx[rows], mask[rows]
+                    idx, mask = idx[b0:b1], mask[b0:b1]
                     adj = halo.group_adjacency(layouts[lo:hi])
                     TRANSFER_COUNTS.add("h2d_aux", 4)
                     TRANSFER_COUNTS.add("bytes_h2d", idx.nbytes + mask.nbytes
                                         + adj[0].nbytes + adj[1].nbytes)
+                    TRANSFER_COUNTS.add("bytes_h2d_pad", pad_up * (
+                        idx[:1].nbytes + mask[:1].nbytes))
                     tables = (self._put(idx), self._put(mask),
                               tuple(self._put(a) for a in adj))
-                if spans:
-                    fence(x_dev, eps_dev, tables)
             with stage("exec.solve", tiles=n_chunk, capacity=capacity,
                        solver="blockwise", adaptive=adaptive):
                 chunk = self._solve_chunk(
@@ -319,8 +336,6 @@ class Executor:
                     resident if keep_bins else None, sizes[lo:hi],
                     layout0, shard)
                 del x_dev, eps_dev, tables
-                if spans:
-                    fence(chunk[2:])
             buckets.record_batch("compress", n_chunk, capacity)
             chunks.append(chunk)
             shards.append(shard)
@@ -351,8 +366,6 @@ class Executor:
                         c[3].to(_TORCH_DTYPE[sub_store]).reshape(
                             c[3].shape[0], -1),
                         subs_chunk, "raw"))
-                if spans:
-                    fence([c[3] for c in chunks])
 
         # only real-tile rows travel: pad tiles' rows never serialize
         ns = [c[0] for c in chunks]
@@ -371,9 +384,10 @@ class Executor:
                              if group is not None for a in group)
                 TRANSFER_COUNTS.add("bytes_d2h", nbytes)
                 dl_sp.set_tag("nbytes", nbytes)
-                # the rows' nonzero words, row-major: the compacted form
-                host = [None if h is None else (h[0], h[1][h[1] != 0], h[2])
-                        for h in host]
+                with stage("exec.restore", streams=len(host)):
+                    # the rows' nonzero words, row-major: the compacted form
+                    host = [None if h is None else (h[0], h[1][h[1] != 0], h[2])
+                            for h in host]
         bins_s = _cat_streams(host[0::2])
         subs_s = _cat_streams(host[1::2]) if preserve_order else None
         if preserve_order:
@@ -485,7 +499,11 @@ class Executor:
                 items[pos : pos + n_chunk], tile_elems, dtype, order, words,
                 batch))
             pos += n_chunk
-        out = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        if len(parts) == 1:
+            out = parts[0]
+        else:
+            with self._stage("exec.concat", batches=len(parts), tiles=n):
+                out = np.concatenate(parts)
         return out.reshape((n,) + tuple(tile))
 
     def stage_rows(self, items, tile_elems: int, order: bool, words,
@@ -519,20 +537,19 @@ class Executor:
         n = len(items)
         DECODE_COUNTS.add("batches")
         buckets.record_batch("decode", n, batch)
-        with span("exec.stream_prep", tiles=n, batch=batch):
+        with self._stage("exec.stream_prep", tiles=n, batch=batch):
             arrays = self.stage_rows(items, tile_elems, order, words, batch)
         up = sum(a.nbytes for a in arrays)
         TRANSFER_COUNTS.add("h2d_sections")
         TRANSFER_COUNTS.add("bytes_h2d", up)
         decode = (device.resident_decode_order if order
                   else device.resident_decode_plain)
-        with span("exec.decode", tiles=n, batch=batch, fused=True,
-                  nbytes_h2d=up):
+        with self._stage("exec.decode", tiles=n, batch=batch, fused=True,
+                         nbytes_h2d=up):
             out = decode(*[self._put(a) for a in arrays], tile_elems,
                          _TORCH_DTYPE[dtype])
-            fence(out)
         TRANSFER_COUNTS.add("d2h_values")
-        with span("exec.download", tiles=n) as dl_sp:
+        with self._stage("exec.download", tiles=n) as dl_sp:
             out_h = out.cpu().numpy()
             dl_sp.set_tag("nbytes", out_h.nbytes)
         TRANSFER_COUNTS.add("bytes_d2h", out_h.nbytes)
@@ -609,7 +626,7 @@ def _restore_run(parts, form: str, n_words: int, n_nzbytes: int, udt):
     return raw.view(udt)
 
 
-def fetch_compacted_streams(streams, extras=(), stage=span):
+def fetch_compacted_streams(streams, extras, stage):
     """Download device (bitmap, words, counts) streams at about payload
     size.
 
@@ -623,7 +640,8 @@ def fetch_compacted_streams(streams, extras=(), stage=span):
     front-packed nonzero words, counts), the counts being the bitmap
     rows' popcounts.  ``None`` entries pass through (the plain path's
     empty subbin slots).  The compaction and the totals fetch run under
-    ``stage``'s ``exec.compaction`` span.  Returns (restored, host
+    ``stage``'s ``exec.compaction`` span, the host's restore after the
+    last fetch under its ``exec.restore`` span.  Returns (restored, host
     extras).
     """
     with stage("exec.compaction",
@@ -647,15 +665,16 @@ def fetch_compacted_streams(streams, extras=(), stage=span):
         a.nbytes for f in fetch_h for part in f for a in part) + sum(
         a.nbytes for e in extras_h for a in e))
     restored = [None] * len(streams)
-    for (i, _), tot, (keepmap, kept, words), (kept_form, word_form) in zip(
-            live, totals, fetch_h, forms):
-        n_words, n_kept, nz_words, nz_kept = (int(t) for t in tot)
-        bitmap = streams[i][0]
-        udt = np.dtype(NP_UNSIGNED[bitmap.element_size()])
-        restored[i] = _restore_stream(
-            keepmap[0], _restore_run(kept, kept_form, n_kept, nz_kept, udt),
-            _restore_run(words, word_form, n_words, nz_words, udt),
-            tuple(bitmap.shape), udt)
+    with stage("exec.restore", streams=len(live)):
+        for (i, _), tot, (keepmap, kept, words), (kept_form, word_form) in zip(
+                live, totals, fetch_h, forms):
+            n_words, n_kept, nz_words, nz_kept = (int(t) for t in tot)
+            bitmap = streams[i][0]
+            udt = np.dtype(NP_UNSIGNED[bitmap.element_size()])
+            restored[i] = _restore_stream(
+                keepmap[0], _restore_run(kept, kept_form, n_kept, nz_kept, udt),
+                _restore_run(words, word_form, n_words, nz_words, udt),
+                tuple(bitmap.shape), udt)
     return restored, extras_h
 
 

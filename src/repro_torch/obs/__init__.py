@@ -1,6 +1,10 @@
 """Observability: end-to-end tracing, unified metrics, flight recorder
-(a copy of ``repro.obs``; only :func:`~repro_torch.obs.trace.fence`
-differs: it waits on CUDA streams).
+(a copy of ``repro.obs``; where it differs: :func:`~repro_torch.obs.trace.stage`
+takes the place of the reference's ``fence``.  An executor stage records
+a CUDA timing event on the current stream at each edge instead of
+synchronizing it while tracing, and the pair becomes the span's
+``device_us`` tag when the tracer hands the span out; see
+:mod:`~repro_torch.obs.trace`).
 
 Three cooperating pieces, all stdlib-only and all zero-cost when
 tracing is off:
@@ -8,7 +12,8 @@ tracing is off:
 * :mod:`~repro_torch.obs.trace` — context-propagated spans.  A request gets a
   ``trace_id`` at ``CompressionService.submit_*`` (or at any root
   ``span()`` a caller opens); the coalescer, the engine's device
-  groups, the executor's fenced stages and the store's batched reads
+  groups, the executor's stages (timed on the device by events) and
+  the store's batched reads
   all open child spans under the ambient context, so one request's time
   is attributable stage by stage.  ``inject``/``extract`` carry the
   context across a wire header (the cluster router's LPRC calls and the
@@ -39,10 +44,10 @@ from .trace import (  # noqa: F401
     enable,
     enabled,
     extract,
-    fence,
     finish_span,
     inject,
     span,
+    stage,
     start_span,
     tracer,
 )

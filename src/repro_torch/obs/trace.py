@@ -1,5 +1,6 @@
 """Context-propagated spans with a process-global tracer (a copy of
-``repro.obs.trace`` but for :func:`fence`, which waits on CUDA streams).
+``repro.obs.trace`` but for :func:`stage`, which times a stage's work on
+a CUDA stream with events where the reference's ``fence`` waited for it).
 
 Model (normative; docs/observability.md walks the full tree):
 
@@ -22,8 +23,21 @@ Model (normative; docs/observability.md walks the full tree):
   finished spans and returns them in the reply header so the router's
   tracer holds the whole tree.
 
-Zero-cost when disabled: ``span()`` returns a shared no-op context
-manager (no allocation, no lock), :func:`fence` does nothing, and the
+* **device time** of an executor stage: :func:`stage` opens a span
+  that, on a CUDA device, records a timing event on the device's current
+  stream as it opens and another as it closes.  Nothing waits for
+  them while the request runs; the pair resolves into the span's
+  ``device_us`` tag (the stream's time from the stage's first queued
+  work to its last) when the tracer hands the span out
+  (:meth:`Tracer.drain`, :meth:`Tracer.take`, :meth:`Tracer.snapshot`,
+  :meth:`Span.as_dict`), never when it finishes, so a listener (the
+  flight recorder) copies tags without it.  The reference's ``fence``
+  synchronized each stage instead, which made the traced program more
+  serial than the untraced one; a stage's host ``dur_us`` is now the
+  host's own time in it.
+
+Zero-cost when disabled: ``span()`` and :func:`stage` return a shared
+no-op context manager (no allocation, no lock, no event), and the
 flight recorder sees no events.  The only always-on cost is one
 attribute read per call site.  Set ``LOPC_TRACE=1`` in the environment
 to enable tracing at import time (how subprocess cluster workers are
@@ -59,7 +73,8 @@ class Span:
     """One finished-or-running operation in a trace."""
 
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "ts_us",
-                 "dur_us", "tags", "status", "pid", "tid", "_t0_perf")
+                 "dur_us", "tags", "status", "pid", "tid", "_t0_perf",
+                 "_events")
 
     def __init__(self, name: str, trace_id: str, parent_id: str | None,
                  tags: dict | None = None):
@@ -74,6 +89,7 @@ class Span:
         self.status = "ok"
         self.pid = os.getpid()
         self.tid = threading.get_ident()
+        self._events = None  # a stage's (start, end) CUDA events
 
     # -- mutation (running spans only) ------------------------------------
 
@@ -84,9 +100,20 @@ class Span:
     def context(self) -> SpanContext:
         return SpanContext(self.trace_id, self.span_id)
 
+    def resolve(self) -> "Span":
+        """Turn a finished stage's event pair into its ``device_us`` tag
+        (waits for the end event; a no-op for every other span)."""
+        ev = self._events
+        if ev is not None and len(ev) == 2:
+            self._events = None
+            ev[1].synchronize()
+            self.tags["device_us"] = ev[0].elapsed_time(ev[1]) * 1e3
+        return self
+
     # -- serialization ----------------------------------------------------
 
     def as_dict(self) -> dict:
+        self.resolve()
         return {
             "name": self.name, "trace_id": self.trace_id,
             "span_id": self.span_id, "parent_id": self.parent_id,
@@ -109,6 +136,7 @@ class Span:
         s.tid = int(d.get("tid", 0))
         s.tags = dict(d.get("tags") or {})
         s._t0_perf = 0
+        s._events = None
         return s
 
 
@@ -153,6 +181,32 @@ class _SpanScope:
             self.span.tags.setdefault("error", str(ev))
         _TRACER.finish(self.span)
         return False
+
+
+class _StageScope(_SpanScope):
+    """A stage span on a CUDA device: a timing event on the device's
+    current stream at each edge, recorded, never waited for."""
+
+    __slots__ = ("_stream",)
+
+    def __init__(self, s: Span, stream):
+        super().__init__(s)
+        self._stream = stream
+
+    def _record(self):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        return ev
+
+    def __enter__(self) -> Span:
+        self.span._events = [self._record()]
+        return super().__enter__()
+
+    def __exit__(self, et, ev, tb) -> bool:
+        self.span._events.append(self._record())
+        return super().__exit__(et, ev, tb)
 
 
 class Tracer:
@@ -237,18 +291,27 @@ class Tracer:
                 kept = [s for s in self._spans if s.trace_id != trace_id]
                 self._spans.clear()
                 self._spans.extend(kept)
-        return out
+        return _resolved(out)
 
     def snapshot(self, trace_id: str | None = None) -> list[Span]:
         with self._lock:
-            return [s for s in self._spans
-                    if trace_id is None or s.trace_id == trace_id]
+            out = [s for s in self._spans
+                   if trace_id is None or s.trace_id == trace_id]
+        return _resolved(out)
 
     def drain(self) -> list[Span]:
         with self._lock:
             out = list(self._spans)
             self._spans.clear()
-        return out
+        return _resolved(out)
+
+
+def _resolved(spans: list[Span]) -> list[Span]:
+    """The spans handed out, each stage's events resolved (outside the
+    tracer's lock: resolving may wait for the device)."""
+    for s in spans:
+        s.resolve()
+    return spans
 
 
 _TRACER = Tracer()
@@ -350,30 +413,22 @@ def extract(header: dict) -> SpanContext | None:
     return SpanContext(tid, sid)
 
 
-# ------------------------------------------------------------ device fence
+# ------------------------------------------------------------ device stages
 
-def fence(*values) -> None:
-    """Wait for the device work behind ``values`` -- but only while
-    tracing, so stage spans measure real device time without imposing
-    sync points on untraced runs.
-
-    ``values`` are tensors or (nested) lists and tuples of them; ``None``
-    entries and CPU tensors are skipped.  For each distinct CUDA device
-    among them, the device's current stream is synchronized once (the
-    port launches every kernel and copy on the current stream).  While
-    tracing is disabled this returns before looking at ``values``: no
-    sync, no allocation."""
+def stage(name: str, device, **tags):
+    """Open an executor stage span (``exec.*``) on ``device``: a child of
+    the ambient context, as :func:`span` opens, that on a CUDA device also
+    records a timing event on the device's current stream at its open and
+    at its close.  The events are never waited for while the stage runs;
+    the span's ``device_us`` tag comes from them when the tracer hands the
+    span out.  On the CPU it is a plain span; while tracing is disabled it
+    is the shared no-op, before ``device`` is looked at: no event, no
+    allocation."""
     if not _TRACER.enabled:
-        return
+        return NOOP_SPAN
+    s = _TRACER.start(name, None, tags)
+    if str(device).split(":")[0] != "cuda":
+        return _SpanScope(s)
     import torch
 
-    devices = set()
-    stack = list(values)
-    while stack:
-        v = stack.pop()
-        if isinstance(v, (list, tuple)):
-            stack.extend(v)
-        elif isinstance(v, torch.Tensor) and v.is_cuda:
-            devices.add(v.device)
-    for dev in devices:
-        torch.cuda.current_stream(dev).synchronize()
+    return _StageScope(s, torch.cuda.current_stream(device))
